@@ -1,0 +1,42 @@
+"""pathtracer_tpu_torch — the PyTorch / CUDA port of ``pathtracer_tpu``.
+
+Typical use, on an NVIDIA GPU:
+
+    import pathtracer_tpu_torch as pt
+    cam, scene = pt.cornell_box(res=(1024, 1024))
+    cam, scene = cam.to("cuda"), scene.to("cuda")
+    film = pt.render(cam, scene, samples=256, depth=5, filename="out.png")
+
+The render runs on the device of the scene's tensors.  On a CUDA scene the
+auto backend launches the hand-written megakernel in ``csrc/``, built with
+``nvcc`` at first use; on a CPU scene it runs the plain PyTorch path.
+
+Module map (each mirrors the module of the same name in pathtracer_tpu):
+    linalg, rng                 L1 math and RNG
+    camera, materials, scene    L2 pinhole camera, BRDF sampling, SoA scene
+    image                       L3b film and PNG I/O
+    ops.intersect, ops.trace    plain PyTorch intersection and bounce loop
+    ops.cuda.trace_kernel       the megakernel's wrapper and plain version
+    render                      L4 drivers
+    convert                     numpy arrays -> Camera / Scene
+    utils                       timer, render checkpoints, kernel build
+"""
+
+from .linalg import DEG2RAD, EPS, FLOAT_INF, SHIFT_BIAS  # noqa: F401
+from .camera import (  # noqa: F401
+    Camera, make_camera, get_rays, rotate, move,
+    FORWARD, BACKWARD, LEFT, RIGHT, UP, DOWN,
+)
+from .materials import EMIT, DIFFUSE, SPECULAR  # noqa: F401
+from .scene import (  # noqa: F401
+    Scene, SceneBuilder, HostMaterial, Diffuse, Emit, Specular,
+    cornell_box, modified_cornell, corner_scene,
+)
+from .image import Film, psnr, read_png, write_png  # noqa: F401
+from .render import (  # noqa: F401
+    render, render_film, render_normals, render_debug_uv,
+)
+from .convert import camera_from_arrays, scene_from_arrays  # noqa: F401
+from .utils.timer import Timer  # noqa: F401
+
+__version__ = "0.1.0"

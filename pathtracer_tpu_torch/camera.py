@@ -1,0 +1,145 @@
+"""Pinhole camera (L2), the PyTorch counterpart of ``pathtracer_tpu/camera.py``.
+
+``Camera`` is a frozen dataclass of tensors; ``get_rays`` is batched over
+pixel coordinates and jitter uniforms.  ``rotate`` / ``move`` return a new
+camera.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .linalg import cross, normalize
+
+FORWARD, BACKWARD, LEFT, RIGHT, UP, DOWN = range(6)
+
+_TENSOR_FIELDS = ("pos", "forward", "up", "right", "world_up", "v_res",
+                  "cell_size", "distance")
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    pos: torch.Tensor        # (3,)
+    forward: torch.Tensor    # (3,) unit
+    up: torch.Tensor         # (3,) unit
+    right: torch.Tensor      # (3,) unit
+    world_up: torch.Tensor   # (3,) unit, the fixed yaw axis
+    v_res: torch.Tensor      # (2,) image-plane size
+    cell_size: torch.Tensor  # () v_res.x / res.x
+    distance: torch.Tensor   # () image-plane distance
+    res: Tuple[int, int]     # (width, height)
+    # Sub-pixel convention of the reference GPU megakernel: rays go through
+    # (w + 0.5 + u) * cell, gl_FragCoord's half-pixel offset plus the jitter.
+    pixel_offset: float = 0.5
+
+    @property
+    def width(self) -> int:
+        return self.res[0]
+
+    @property
+    def height(self) -> int:
+        return self.res[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos.device
+
+    def to(self, device) -> "Camera":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
+
+
+def make_camera(pos, forward, up, res, fov, distance=1.0,
+                pixel_offset=0.5) -> Camera:
+    """Build a camera on the CPU.  ``fov`` is the horizontal field of view
+    in radians; ``res`` is (width, height)."""
+    pos = np.asarray(pos, np.float32)
+    forward = np.asarray(forward, np.float32)
+    up = np.asarray(up, np.float32)
+
+    fwd = forward / np.linalg.norm(forward)
+    upn = up / np.linalg.norm(up)
+    if abs(float(np.dot(fwd, upn))) > 0.999:
+        raise ValueError("Up vector is too close to forward vector")
+    right = np.cross(fwd, up)
+    right = right / np.linalg.norm(right)
+
+    w, h = int(res[0]), int(res[1])
+    vx = 2.0 * distance * math.tan(fov / 2.0)
+    vy = vx * h / w
+    return Camera(
+        pos=torch.from_numpy(pos),
+        forward=torch.from_numpy(fwd),
+        up=torch.from_numpy(upn),
+        right=torch.from_numpy(right),
+        world_up=torch.from_numpy(upn.copy()),
+        v_res=torch.from_numpy(np.array([vx, vy], np.float32)),
+        cell_size=torch.tensor(np.float32(vx / w)),
+        distance=torch.tensor(np.float32(distance)),
+        res=(w, h),
+        pixel_offset=float(pixel_offset),
+    )
+
+
+def get_rays(cam: Camera, w, h, u1, u2):
+    """Batched primary rays.
+
+    w, h: integer pixel coordinates; u1, u2: jitter uniforms in [0, 1), all
+    broadcastable.  Returns (ray_o, ray_d), each (..., 3), ray_d unit.  The
+    world direction is x * right + y * up + distance * forward.
+    """
+    off = cam.pixel_offset
+    x = (w.to(torch.float32) + off + u1) * cam.cell_size - cam.v_res[0] * 0.5
+    y = (h.to(torch.float32) + off + u2) * cam.cell_size - cam.v_res[1] * 0.5
+    d = normalize(x[..., None] * cam.right + y[..., None] * cam.up
+                  + cam.distance * cam.forward)
+    return cam.pos.expand(d.shape), d
+
+
+def _renorm(v):
+    return v / torch.linalg.vector_norm(v)
+
+
+def rotate(cam: Camera, direction: int, angle: float) -> Camera:
+    """FPS-style rotation: yaw about world_up, pitch about right."""
+    a = torch.tensor(angle, dtype=torch.float32, device=cam.device)
+    c, s = torch.cos(a), torch.sin(a)
+    fwd, up, right = cam.forward, cam.up, cam.right
+    if direction == LEFT:
+        fwd = _renorm(fwd * c - right * s)
+        right = _renorm(cross(fwd, cam.world_up))
+        up = _renorm(cross(right, fwd))
+    elif direction == RIGHT:
+        fwd = _renorm(fwd * c + right * s)
+        right = _renorm(cross(fwd, cam.world_up))
+        up = _renorm(cross(right, fwd))
+    elif direction == UP:
+        fwd = _renorm(fwd * c + up * s)
+        up = _renorm(cross(right, fwd))
+    elif direction == DOWN:
+        fwd = _renorm(fwd * c - up * s)
+        up = _renorm(cross(right, fwd))
+    return dataclasses.replace(cam, forward=fwd, up=up, right=right)
+
+
+def move(cam: Camera, direction: int, amount: float) -> Camera:
+    """Translation relative to world_up / right."""
+    pos = cam.pos
+    if direction == UP:
+        pos = pos + cam.world_up * amount
+    elif direction == DOWN:
+        pos = pos - cam.world_up * amount
+    elif direction == FORWARD:
+        pos = pos + _renorm(cross(cam.world_up, cam.right)) * amount
+    elif direction == BACKWARD:
+        pos = pos - _renorm(cross(cam.world_up, cam.right)) * amount
+    elif direction == LEFT:
+        pos = pos - cam.right * amount
+    elif direction == RIGHT:
+        pos = pos + cam.right * amount
+    return dataclasses.replace(cam, pos=pos)

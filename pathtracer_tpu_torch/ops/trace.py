@@ -1,0 +1,129 @@
+"""The bounce loop, the PyTorch counterpart of ``pathtracer_tpu/ops/trace.py``.
+
+Forward accumulation: carry a throughput, add ``throughput * emit`` at every
+hit and multiply by ``2 * albedo * cos`` on every continuing bounce.  A
+miss kills the path; an EMIT hit adds its emission and kills the path; the
+next origin is ``hit_p + normal * SHIFT_BIAS``.  Dead rays are masked.
+
+Per-triangle shading constants live in one (T, 12) table, gathered by hit
+triangle id with a plain ``index_select``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from .. import materials as mat
+from ..camera import Camera, get_rays
+from ..linalg import SHIFT_BIAS, cross, dot
+from ..rng import rand01, sample_seed
+from ..scene import Scene
+from .intersect import intersect_brute
+
+# Shade-table column layout.
+_ALBEDO = slice(0, 3)
+_EMIT = slice(3, 6)
+_ROUGH = 6
+_NORMAL = slice(7, 10)
+_IS_EMIT = 10
+_IS_SPEC = 11
+TABLE_COLS = 12
+
+IntersectFn = Callable[[torch.Tensor, torch.Tensor],
+                       Tuple[torch.Tensor, torch.Tensor]]
+
+
+def shade_table(scene: Scene) -> torch.Tensor:
+    """The (T, 12) table: [albedo, emit, roughness, unit geometric normal,
+    is_emit, is_specular].  Padding rows get a zero normal."""
+    n = cross(scene.v2 - scene.v1, scene.v3 - scene.v1)
+    norm = torch.sqrt(dot(n, n))[:, None]
+    n = n / torch.where(norm > 0, norm, 1.0)
+    return torch.cat([
+        scene.albedo,
+        scene.emit,
+        scene.roughness[:, None],
+        n,
+        (scene.mat_type == mat.EMIT)[:, None].to(torch.float32),
+        (scene.mat_type == mat.SPECULAR)[:, None].to(torch.float32),
+    ], dim=-1)
+
+
+def gather_features(table: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` by triangle id: (...,) -> (..., C); id -1 (a miss)
+    gives an all-zero row."""
+    rows = table.index_select(0, tid.clamp_min(0).reshape(-1).to(torch.int64))
+    rows = rows.reshape(tuple(tid.shape) + (table.shape[1],))
+    return torch.where((tid >= 0)[..., None], rows, 0.0)
+
+
+def trace_rays(table: torch.Tensor, intersect: IntersectFn,
+               ray_o: torch.Tensor, ray_d: torch.Tensor, depth: int,
+               rng_state: torch.Tensor,
+               has_specular: bool = True) -> torch.Tensor:
+    """Trace a ray batch to radiance (..., 3).
+
+    table: (T, 12) from :func:`shade_table`; intersect: (o, d) -> (t, tid);
+    ray_o, ray_d: (..., 3); rng_state: (...,) uint32 values in int64.
+    """
+    thr = torch.ones_like(ray_o)
+    rad = torch.zeros_like(ray_o)
+    alive = torch.ones(ray_o.shape[:-1], dtype=torch.bool,
+                       device=ray_o.device)
+    for _ in range(depth):
+        t, tid = intersect(ray_o, ray_d)
+        hit = (tid >= 0) & alive
+        hitm = hit[..., None]
+
+        feat = gather_features(table, torch.where(hit, tid, -1))
+        albedo = feat[..., _ALBEDO]
+        emit = feat[..., _EMIT]
+        rough = feat[..., _ROUGH]
+        n_geo = feat[..., _NORMAL]
+        is_emit = feat[..., _IS_EMIT] > 0.5
+        is_spec = feat[..., _IS_SPEC] > 0.5
+
+        rad = rad + torch.where(hitm, thr * emit, 0.0)
+        cont = hit & ~is_emit
+        contm = cont[..., None]
+
+        # Double-sided normal, flipped toward the incoming ray.
+        n = torch.where((dot(n_geo, ray_d) < 0.0)[..., None], n_geo, -n_geo)
+
+        rng_state, (u, v, cube) = mat.draw_bounce_uniforms(
+            rng_state, has_specular)
+        new_d = mat.hemisphere_sample(u, v, n)
+        if has_specular:
+            spec_d = mat.specular_sample(ray_d, n, rough, cube)
+            new_d = torch.where(is_spec[..., None], spec_d, new_d)
+
+        cos = dot(n, new_d)
+        thr = thr * torch.where(contm, 2.0 * albedo * cos[..., None], 1.0)
+        hit_p = ray_o + ray_d * t[..., None]
+        ray_o = torch.where(contm, hit_p + n * SHIFT_BIAS, ray_o)
+        ray_d = torch.where(contm, new_d, ray_d)
+        alive = cont
+    return rad
+
+
+def sample_radiance(camera: Camera, scene: Scene, table: torch.Tensor,
+                    w: torch.Tensor, h: torch.Tensor, sidx: torch.Tensor,
+                    depth: int, seed: int) -> torch.Tensor:
+    """Radiance (S, *w.shape, 3) of the samples ``sidx`` (S,) at pixels
+    (w, h): per-(pixel, sample) seed, two jitter draws, camera ray, then
+    :func:`trace_rays` over :func:`intersect_brute`.  This is the whole
+    per-sample path of the brute backend and of the megakernel's plain
+    version."""
+    sidx = sidx.reshape((-1,) + (1,) * w.dim())
+    state = sample_seed(w[None], h[None], camera.height, sidx, seed)
+    state, u1 = rand01(state)
+    state, u2 = rand01(state)
+    ray_o, ray_d = get_rays(camera, w[None], h[None], u1, u2)
+
+    def intersect(o, d):
+        return intersect_brute(o, d, scene.v1, scene.v2, scene.v3)
+
+    return trace_rays(table, intersect, ray_o, ray_d, depth, state,
+                      has_specular=scene.has_specular)

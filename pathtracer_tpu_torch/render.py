@@ -1,0 +1,282 @@
+"""Render drivers (L4), the PyTorch counterpart of ``pathtracer_tpu/render.py``.
+
+Backends:
+  * ``"cuda"`` — the hand-written CUDA megakernel (ops/cuda/trace_kernel.py),
+    one launch per window of about 2^24 ray segments.  On a CPU scene its
+    wrapper takes the kernel's plain version.
+  * ``"brute"`` — plain PyTorch: a host loop over row tiles and sample
+    blocks, each block traced by ``ops/trace.sample_radiance`` (dense
+    Möller–Trumbore against every triangle).
+
+``"auto"`` picks ``"cuda"`` for a scene on a CUDA device and ``"brute"``
+for one on the CPU.  Scenes of more than ``BRUTE_MAX`` padded triangles
+need the BVH, cluster and beam backends, which come with a later slice of
+the port.
+
+RNG: one independent hash stream per (pixel, sample), consumed jitter
+first, then the bounces.  Sample windows therefore sum exactly, which the
+checkpointed drivers rely on.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import rng as prng
+from .camera import Camera, get_rays
+from .image import Film
+from .linalg import dot
+from .ops import trace as trace_ops
+from .ops.cuda import trace_kernel
+from .ops.intersect import intersect_brute
+from .scene import Scene
+from .utils import checkpoint as ckpt
+from .utils.timer import Timer
+
+BRUTE_MAX = 512                  # max padded triangle count for the dense path
+TARGET_RAYS_PER_PASS = 1 << 21   # rays traced per tile pass
+TARGET_RAYS_PER_CALL = 1 << 24   # rays per schedule entry
+
+BACKENDS = ("brute", "cuda")
+
+
+def _plan(width: int, height: int, samples: int, n_tris: int):
+    """(tile_h, spp_b, blocks_per_call) for the brute driver.  The dense
+    intersector holds O(rays * n_tris) floats, so the per-pass ray budget
+    shrinks for bigger scenes; the last row tile may be ragged."""
+    per_pass = max(1 << 16, TARGET_RAYS_PER_PASS // max(1, n_tris // 32))
+    tile_h = max(1, min(height, per_pass // max(1, width)))
+    spp_b = max(1, min(samples, per_pass // (tile_h * width)))
+    blocks = max(1, min(samples // spp_b,
+                        TARGET_RAYS_PER_CALL // (tile_h * width * spp_b)))
+    return tile_h, spp_b, blocks
+
+
+def _auto_backend(camera: Camera, scene: Scene) -> str:
+    if scene.padded_size > BRUTE_MAX:
+        raise NotImplementedError(
+            f"scenes of more than {BRUTE_MAX} padded triangles (got "
+            f"{scene.padded_size}) need the BVH, cluster and beam backends "
+            f"of slice 2 of the PyTorch port")
+    return "cuda" if scene.device.type == "cuda" else "brute"
+
+
+def _sample_schedule(samples: int, spp_b: int, blocks: int):
+    """Deterministic [(sidx0, spp, n_blocks), ...] covering [0, samples),
+    derived from the TOTAL sample count only, so a resumed render blocks
+    and accumulates exactly as an uninterrupted one."""
+    sched = []
+    s = 0
+    while s < samples:
+        nb = min(blocks, (samples - s) // spp_b)
+        if nb == 0:
+            nb, this_spp = 1, samples - s
+        else:
+            this_spp = spp_b
+        sched.append((s, this_spp, nb))
+        s += this_spp * nb
+    return sched
+
+
+def _scene_sum(scene: Scene) -> float:
+    return float(scene.host_verts()[0].sum() + scene.host_materials()[1].sum())
+
+
+def _resume(checkpoint: Optional[str], meta: dict, film: torch.Tensor,
+            verbose: bool):
+    """(film, samples_done) from ``checkpoint`` if it exists."""
+    if checkpoint is None or not os.path.exists(ckpt.checkpoint_path(
+            checkpoint)):
+        return film, 0
+    film_sum, samples_done, saved = ckpt.load_render_checkpoint(checkpoint)
+    if saved != meta:
+        raise ValueError(
+            f"checkpoint {checkpoint} was written by a different render "
+            f"config:\n  saved: {saved}\n  this:  {meta}")
+    if verbose:
+        print(f"Resuming at sample {samples_done}/{meta['samples']}.")
+    return torch.from_numpy(film_sum).to(film.device), samples_done
+
+
+def _tile_sum(camera: Camera, scene: Scene, table: torch.Tensor, h0: int,
+              tile_h: int, sidx0: int, spp_b: int, n_blocks: int,
+              depth: int, seed: int) -> torch.Tensor:
+    """Radiance sum of rows [h0, h0 + tile_h) over ``n_blocks`` blocks of
+    ``spp_b`` samples from ``sidx0``."""
+    width = camera.width
+    dev = scene.device
+    w = torch.arange(width, device=dev).expand(tile_h, width)
+    h = torch.arange(h0, h0 + tile_h, device=dev)[:, None].expand(tile_h,
+                                                                  width)
+    acc = torch.zeros((tile_h, width, 3), dtype=torch.float32, device=dev)
+    for k in range(n_blocks):
+        sidx = torch.arange(sidx0 + k * spp_b, sidx0 + (k + 1) * spp_b,
+                            device=dev)
+        rad = trace_ops.sample_radiance(camera, scene, table, w, h, sidx,
+                                        depth, seed)
+        acc = acc + rad.sum(dim=0)
+    return acc
+
+
+def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
+                *, seed: int = prng.SEED, backend: str = "auto",
+                verbose: bool = False, checkpoint: Optional[str] = None,
+                checkpoint_every: int = 1,
+                _abort_after: Optional[int] = None) -> Film:
+    """Render the sample-averaged LINEAR film (no gamma) on the scene's
+    device.
+
+    checkpoint: path to a .npz resume file.  If it exists the render resumes
+    at the recorded sample and gives a film BIT-IDENTICAL to an
+    uninterrupted run; otherwise it is created and updated every
+    ``checkpoint_every`` completed schedule entries.
+    ``_abort_after``: testing hook — save and abort after this many
+    schedule entries.
+    """
+    if scene.num_tris == 0:
+        raise ValueError("No triangles in scene.")
+    if backend == "auto":
+        backend = _auto_backend(camera, scene)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not in {BACKENDS}")
+    if backend == "cuda":
+        if checkpoint is None:
+            return trace_kernel.render_film_cuda(camera, scene, samples,
+                                                 depth, seed=seed)
+        return _render_cuda_checkpointed(
+            camera, scene, samples, depth, seed=seed, checkpoint=checkpoint,
+            checkpoint_every=checkpoint_every, verbose=verbose,
+            _abort_after=_abort_after)
+
+    width, height = camera.res
+    tile_h, spp_b, blocks = _plan(width, height, samples, scene.padded_size)
+    table = trace_ops.shade_table(scene)
+    sched = _sample_schedule(samples, spp_b, blocks)
+    meta = {"width": width, "height": height, "samples": samples,
+            "depth": depth, "seed": seed, "backend": backend,
+            "tile_h": tile_h, "spp_b": spp_b, "scene_sum": _scene_sum(scene)}
+    film = torch.zeros((height, width, 3), dtype=torch.float32,
+                       device=scene.device)
+    film, samples_done = _resume(checkpoint, meta, film, verbose)
+
+    for ei, (s0, this_spp, nb) in enumerate(sched):
+        if s0 < samples_done:
+            continue
+        for h0 in range(0, height, tile_h):
+            th = min(tile_h, height - h0)
+            film[h0:h0 + th] += _tile_sum(camera, scene, table, h0, th, s0,
+                                          this_spp, nb, depth, seed)
+        samples_done = s0 + this_spp * nb
+        if verbose:
+            print(f"\rRendered: {samples_done}/{samples} spp.", end="",
+                  flush=True)
+        if checkpoint is not None and (
+                ei % checkpoint_every == checkpoint_every - 1
+                or samples_done >= samples):
+            ckpt.save_render_checkpoint(checkpoint, film, samples_done, meta)
+        if _abort_after is not None and ei + 1 >= _abort_after:
+            if checkpoint is not None:
+                ckpt.save_render_checkpoint(checkpoint, film, samples_done,
+                                            meta)
+            raise KeyboardInterrupt(
+                f"aborted after {ei + 1} schedule entries (test hook)")
+    if verbose:
+        print()
+    return Film((width, height), data=film / samples)
+
+
+def _render_cuda_checkpointed(camera: Camera, scene: Scene, samples: int,
+                              depth: int, *, seed: int, checkpoint: str,
+                              checkpoint_every: int = 1,
+                              verbose: bool = False,
+                              _abort_after: Optional[int] = None) -> Film:
+    """Resumable megakernel render: windows of one launch's samples, the
+    film sum saved between windows."""
+    width, height = camera.res
+    block_spp = max(1, min(samples, trace_kernel.RAYS_PER_CALL
+                           // (width * height)))
+    meta = {"width": width, "height": height, "samples": samples,
+            "depth": depth, "seed": seed, "backend": "cuda",
+            "block_spp": block_spp, "scene_sum": _scene_sum(scene)}
+    film = torch.zeros((height, width, 3), dtype=torch.float32,
+                       device=scene.device)
+    film, samples_done = _resume(checkpoint, meta, film, verbose)
+
+    blocks_done = 0
+    while samples_done < samples:
+        spp = min(block_spp, samples - samples_done)
+        film = film + trace_kernel.render_sum_cuda(
+            camera, scene, samples_done, spp, depth, seed=seed,
+            spp_per_call=spp)
+        samples_done += spp
+        blocks_done += 1
+        if blocks_done % checkpoint_every == 0 or samples_done >= samples:
+            ckpt.save_render_checkpoint(checkpoint, film, samples_done, meta)
+        if verbose:
+            print(f"\rRendered: {samples_done}/{samples} spp.", end="",
+                  flush=True)
+        if _abort_after is not None and blocks_done >= _abort_after:
+            ckpt.save_render_checkpoint(checkpoint, film, samples_done, meta)
+            raise KeyboardInterrupt(
+                f"aborted after {blocks_done} blocks (test hook)")
+    if verbose:
+        print()
+    return Film((width, height), data=film / samples)
+
+
+def render_normals(camera: Camera, scene: Scene) -> Film:
+    """Debug view: first-hit double-sided normals, one centre ray per
+    pixel."""
+    width, height = camera.res
+    dev = scene.device
+    table = trace_ops.shade_table(scene)
+    w = torch.arange(width, device=dev).expand(height, width)
+    h = torch.arange(height, device=dev)[:, None].expand(height, width)
+    half = torch.full((height, width), 0.5, dtype=torch.float32, device=dev)
+    ray_o, ray_d = get_rays(camera, w, h, half, half)
+    _, tid = intersect_brute(ray_o, ray_d, scene.v1, scene.v2, scene.v3)
+    n = trace_ops.gather_features(table, tid)[..., 7:10]
+    flip = torch.where(dot(n, ray_d)[..., None] < 0.0, 1.0, -1.0)
+    return Film((width, height),
+                data=torch.where((tid >= 0)[..., None], n * flip, 0.0))
+
+
+def render_debug_uv(res) -> Film:
+    """UV-gradient test image: color = |uv| over [-1, 1]^2."""
+    width, height = int(res[0]), int(res[1])
+    x = np.abs(np.linspace(-1, 1, width, dtype=np.float32))
+    y = np.abs(np.linspace(-1, 1, height, dtype=np.float32))
+    img = np.zeros((height, width, 3), np.float32)
+    img[..., 0] = x[None, :]
+    img[..., 1] = y[:, None]
+    return Film((width, height), data=torch.from_numpy(img))
+
+
+def render(camera: Camera, scene: Scene, samples: int, depth: int = 5,
+           filename: Optional[str] = None, *, seed: int = prng.SEED,
+           backend: str = "auto", gamma: float = 2.2,
+           checkpoint: Optional[str] = None, verbose: bool = True) -> Film:
+    """Full pipeline: trace, average, gamma-correct, optionally save a PNG.
+    Returns the gamma-corrected film and prints wall-clock time and rays/s
+    (width * height * samples * depth ray segments over the wall time,
+    device work included)."""
+    timer = Timer(scene.device)
+    film = render_film(camera, scene, samples, depth, seed=seed,
+                       backend=backend, checkpoint=checkpoint,
+                       verbose=verbose)
+    seconds = timer.seconds()
+    if verbose:
+        w, h = camera.res
+        rays = w * h * samples * depth
+        print(f"Done in {seconds:.2f} seconds "
+              f"({rays / max(seconds, 1e-9):.3e} rays/s).")
+    film.gamma_correct(gamma)
+    if filename:
+        film.save_png(filename)
+        if verbose:
+            print(f"Saved to {filename}")
+    return film

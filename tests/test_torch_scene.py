@@ -1,0 +1,190 @@
+"""pathtracer_tpu_torch scene, camera, film and checkpoint layers against
+pathtracer_tpu."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pathtracer_tpu as jpt
+import pathtracer_tpu_torch as tpt
+from pathtracer_tpu import camera as jcamera
+from pathtracer_tpu import image as jimage
+from pathtracer_tpu.utils import checkpoint as jckpt
+from pathtracer_tpu_torch import camera as tcamera
+from pathtracer_tpu_torch import image as timage
+from pathtracer_tpu_torch.utils import checkpoint as tckpt
+
+from _torch_parity import (CAMERA_FIELDS, SCENE_FIELDS, as_np, carry)
+
+FIXTURES = {
+    "corner": (jpt.corner_scene, tpt.corner_scene, ()),
+    "cornell": (jpt.cornell_box, tpt.cornell_box, ()),
+    "specular": (jpt.modified_cornell, tpt.modified_cornell, (0.05,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_fixture_scene_arrays_equal(name):
+    jfn, tfn, args = FIXTURES[name]
+    jcam, jscene = jfn(*args, res=(32, 24))
+    tcam, tscene = tfn(*args, res=(32, 24))
+    for f in SCENE_FIELDS:
+        np.testing.assert_array_equal(as_np(getattr(tscene, f)),
+                                      np.asarray(getattr(jscene, f)), f)
+    assert tscene.num_tris == jscene.num_tris
+    assert tscene.has_specular == jscene.has_specular
+    assert tscene.padded_size == jscene.padded_size
+    assert tscene.padded_size % 8 == 0
+    for a, b in zip(tscene.host_verts() + tscene.host_materials(),
+                    jscene.host_verts() + jscene.host_materials()):
+        np.testing.assert_array_equal(a, b)
+    for f in CAMERA_FIELDS:
+        np.testing.assert_array_equal(as_np(getattr(tcam, f)),
+                                      np.asarray(getattr(jcam, f)), f)
+    assert tcam.res == jcam.res == (32, 24)
+    assert tcam.pixel_offset == jcam.pixel_offset == 0.5
+
+
+def test_scene_builder_padding_and_errors():
+    sb = tpt.SceneBuilder()
+    with pytest.raises(ValueError):
+        sb.build()
+    for i in range(9):
+        sb.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), tpt.Diffuse(0.5))
+    assert len(sb) == 9
+    scene = sb.build()
+    assert scene.padded_size == 16 and scene.num_tris == 9
+    assert not scene.has_specular
+    assert int(scene.mat_type[9:].abs().sum()) == 0
+    assert tpt.SceneBuilder().add_triangle(
+        (0, 0, 0), (1, 0, 0), (0, 1, 0),
+        tpt.Specular(0.1)).build(pad_to_multiple=4).padded_size == 4
+
+
+def test_scene_to_keeps_host_caches():
+    _, scene = tpt.cornell_box(res=(8, 8))
+    moved = scene.to("cpu")
+    assert moved.device.type == "cpu"
+    assert moved.host_verts()[0] is not None
+    np.testing.assert_array_equal(moved.host_materials()[2],
+                                  scene.host_materials()[2])
+    # A scene built without the builder still answers from its tensors.
+    bare = tpt.Scene(*(getattr(scene, f) for f in SCENE_FIELDS),
+                     num_tris=scene.num_tris, has_specular=False)
+    for a, b in zip(bare.host_verts(), scene.host_verts()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_convert_carries_jax_scene_unchanged():
+    jcam, jscene = jpt.modified_cornell(0.3, res=(16, 16))
+    cam, scene = carry(jcam, jscene)
+    tcam, tscene = tpt.modified_cornell(0.3, res=(16, 16))
+    for f in SCENE_FIELDS:
+        assert torch.equal(getattr(scene, f), getattr(tscene, f)), f
+    for f in CAMERA_FIELDS:
+        assert torch.equal(getattr(cam, f), getattr(tcam, f)), f
+    assert cam.res == tcam.res and scene.num_tris == tscene.num_tris
+
+
+def test_make_camera_rejects_parallel_up():
+    with pytest.raises(ValueError):
+        tpt.make_camera((0, 0, 0), (0, 1, 0), (0, 1, 0), (8, 8), 1.0)
+
+
+@pytest.mark.parametrize("offset", [0.5, 0.0])
+def test_get_rays_match(offset):
+    jcam = jcamera.make_camera((278, 278, -500), (0, 0, 1), (0, 1, 0),
+                               (48, 32), 60 * math.pi / 180, 1.0,
+                               pixel_offset=offset)
+    tcam = tcamera.make_camera((278, 278, -500), (0, 0, 1), (0, 1, 0),
+                               (48, 32), 60 * math.pi / 180, 1.0,
+                               pixel_offset=offset)
+    rng = np.random.default_rng(8)
+    w = np.broadcast_to(np.arange(48, dtype=np.int32)[None], (32, 48))
+    h = np.broadcast_to(np.arange(32, dtype=np.int32)[:, None], (32, 48))
+    u1 = rng.random((32, 48), dtype=np.float32)
+    u2 = rng.random((32, 48), dtype=np.float32)
+    jo, jd = jcamera.get_rays(jcam, *map(jnp.asarray, (w, h, u1, u2)))
+    to, td = tcamera.get_rays(tcam, *map(torch.from_numpy,
+                                         (w.copy(), h.copy(), u1, u2)))
+    np.testing.assert_array_equal(as_np(to), np.asarray(jo))
+    np.testing.assert_allclose(as_np(td), np.asarray(jd), atol=1e-6)
+
+
+@pytest.mark.parametrize("direction", range(6))
+def test_rotate_and_move_match(direction):
+    jcam, _ = jpt.cornell_box(res=(8, 8))
+    tcam, _ = tpt.cornell_box(res=(8, 8))
+    jr = jcamera.rotate(jcam, direction, 0.3)
+    tr = tcamera.rotate(tcam, direction, 0.3)
+    jm = jcamera.move(jcam, direction, 7.5)
+    tm = tcamera.move(tcam, direction, 7.5)
+    for f in ("forward", "up", "right"):
+        np.testing.assert_allclose(as_np(getattr(tr, f)),
+                                   np.asarray(getattr(jr, f)), atol=1e-6)
+    np.testing.assert_allclose(as_np(tm.pos), np.asarray(jm.pos), atol=1e-4)
+
+
+def test_film_to_u8_and_gamma_match():
+    rng = np.random.default_rng(9)
+    data = rng.uniform(-0.2, 1.3, (12, 20, 3)).astype(np.float32)
+    jf = jimage.Film((20, 12), data=data.copy())
+    tf = timage.Film((20, 12), data=torch.from_numpy(data.copy()))
+    np.testing.assert_array_equal(tf.to_u8(), jf.to_u8())
+    jf.gamma_correct(2.2)
+    tf.gamma_correct(2.2)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf.data), atol=1e-6)
+    tf += tf
+    tf /= 2.0
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf.data), atol=1e-6)
+
+
+def test_png_roundtrip_and_cross_read(tmp_path):
+    rng = np.random.default_rng(10)
+    img = rng.integers(0, 256, (17, 23, 3), dtype=np.uint8)
+    path = str(tmp_path / "t.png")
+    timage.write_png(path, img)
+    np.testing.assert_array_equal(timage.read_png(path), img)
+    np.testing.assert_array_equal(jimage.read_png(path), img)
+    film = timage.Film((23, 17), data=torch.from_numpy(
+        (img.astype(np.float32) + 0.5) / 255.0))
+    film.save_png(path)
+    back = timage.read_png(path)
+    np.testing.assert_array_equal(back, film.to_u8())
+    np.testing.assert_array_equal(back, img[::-1])  # row 0 is the bottom
+    (tmp_path / "bad.png").write_bytes(b"not a png")
+    with pytest.raises(ValueError):
+        timage.read_png(str(tmp_path / "bad.png"))
+
+
+def test_psnr_matches():
+    rng = np.random.default_rng(11)
+    a = rng.random((8, 8, 3), dtype=np.float32)
+    b = a + rng.normal(0, 0.01, a.shape).astype(np.float32)
+    assert timage.psnr(torch.from_numpy(a), b) == pytest.approx(
+        jimage.psnr(a, b), rel=1e-12)
+    assert timage.psnr(a, a) == float("inf")
+
+
+def test_render_checkpoint_layout_is_shared(tmp_path):
+    film = np.random.default_rng(12).random((4, 6, 3), dtype=np.float32)
+    meta = {"width": 6, "height": 4, "samples": 8, "backend": "cuda"}
+    path = str(tmp_path / "ck")
+    tckpt.save_render_checkpoint(path, torch.from_numpy(film), 5, meta)
+    got = jckpt.load_render_checkpoint(path)
+    np.testing.assert_array_equal(got[0], film)
+    assert got[1:] == (5, meta)
+    jckpt.save_render_checkpoint(str(tmp_path / "j.npz"), film, 3, meta)
+    got = tckpt.load_render_checkpoint(str(tmp_path / "j"))
+    np.testing.assert_array_equal(got[0], film)
+    assert got[1:] == (3, meta)
+
+
+def test_timer_measures_elapsed_time():
+    timer = tpt.Timer("cpu")
+    assert timer.seconds() >= 0.0
+    timer.reset()
+    assert tpt.Timer().seconds() >= 0.0
