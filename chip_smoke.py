@@ -18,10 +18,33 @@ not 0:
      backend's film on the card at 4 spp;
   5. timing at 1024^2, 16 spp, depth 5: median over 3 runs of the device
      time per call of the kernel and of the plain version, CUDA events;
-then one JSON line on the kernels and, last, the device line.  The render
+  6. the cluster kernel against its plain version on sphere_in_box(50, 100)
+     (9,812 triangles): 65,536 camera rays of the 512^2 film and 65,536
+     random rays, t within rtol 1e-6, tid equal except at near-ties, the
+     same hits with the ray sort, and backend="cluster" against
+     backend="bvh" at 64^2;
+  7. the beam kernel against its plain version on the lit sphere scene, the
+     Cornell box, the specular Cornell box and two 70-material (inline)
+     scenes, one with specular quads (all four kernel instances), at 64^2
+     and 200x72, depth 1 and 5, a band of tiles against the same tiles of a
+     full launch (bit for bit), a window split over two calls (atol 1e-6),
+     and the emission check;
+  8. the large-scene main path: render() through backend="auto" on
+     sphere_in_box(50, 100) and mesh_garden() (105,708 triangles) at 512^2,
+     which must launch the beam kernel; both films against the JAX
+     package's converged renders in docs/; for each, the kernel at the main
+     path's launch shape against its plain version on two bands of tiles;
+     one backend="cluster" render;
+  9. timing: the beam and cluster kernels against their plain versions, the
+     cluster kernel on the garden's clusters (a slice of its 2^20 rays held
+     against the plain version), and the ray segments/s of the beam and
+     cluster renders at 512^2, depth 5, and the cluster render without the
+     ray sort (the default) and with it, off/on/on/off;
+then one JSON line on the kernels and, last, the device line.  The renders
 and a JSON record of the run go to build/chip_smoke/ (git-ignored).
 """
 
+import functools
 import json
 import os
 import statistics
@@ -46,6 +69,31 @@ CHECK_SPP = 4            # main-path film against the brute backend
 TIME_SPP = 16            # one launch of 2^24 ray segments at 1024^2
 TIME_RUNS = 3
 KERNEL_CALLS = 16        # back-to-back kernel calls per timed run
+
+# Large scenes (phases 6-9).
+CLUSTER_RAYS = 1 << 16   # camera rays, and as many random rays, in phase 6
+CLUSTER_T_RTOL = 1e-6
+TIE_RTOL = 1e-5          # nearest hits closer than this may swap ids
+LARGE_RES = (512, 512)
+SPHERE_SPP = 64          # main-path renders of phase 8
+GARDEN_SPP = 2048        # as the committed render
+GOLDEN_SPP = 2048        # the 256^2 sphere render held against docs/
+CLUSTER_SPP = 4
+# The phase-8 films against the committed 2048-spp JAX renders (8-bit,
+# gamma 2.2), bars set from the first chip runs (NVIDIA H100 80GB HBM3,
+# 700 W): linear means +0.27% (sphere9812) and +0.98% (garden105708)
+# apart.  PSNR: the garden render at 2048 spp reads 50.43 dB, the same
+# image up to near-tie hits (the committed render drew the same streams);
+# the sphere render 34.45 dB, a noise floor: the committed one was drawn
+# with other streams, so the two carry independent noise.
+GOLDEN_MEAN_RTOL = 0.02
+GOLDEN_MIN_PSNR = {"sphere9812": 30.0, "garden105708": 45.0}
+BAND_TILES = 2            # tiles per main-path band held in phase 8
+TIME_CLUSTER_RAYS = 1 << 20
+HELD_CLUSTER_RAYS = 1 << 15  # of those, held against the plain version
+TIME_BEAM_RES = (128, 128)   # the plain beam version takes about 1 s here
+TIME_BEAM_SPP = 4
+TIME_RENDER_SPP = {"sphere9812": (16, 4), "garden105708": (8, 2)}
 
 
 def check(cond, msg):
@@ -82,6 +130,489 @@ def timed_ms(fn, calls, runs=TIME_RUNS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times), times
+
+
+def lit_sphere_camera(pt, res):
+    """sphere_in_box's camera tilted up so the ceiling light is on screen
+    (tests/test_beam.py): small films of the stock view can be black."""
+    return pt.make_camera((250, 250, -420), (0, 0.35, 1), (0, 1, 0), res,
+                          60 * pt.DEG2RAD, 1.0)
+
+
+def inline_scene(pt, specular=False):
+    """70 quads of distinct albedo under one light: more than 64 materials,
+    so the beam accel inlines them (tests/test_beam.py).  All diffuse, or
+    with ``specular`` every third one specular."""
+    sb = pt.SceneBuilder()
+    s = 100.0
+    sb.add_quad(((s, s - 1, 30), (s, s - 1, 70), (0, s - 1, 70),
+                 (0, s - 1, 30)), pt.Emit(1))
+    for i in range(70):
+        x = (i % 10) * 10.0
+        z = (i // 10) * 12.0 + 5.0
+        m = (pt.Specular(0.05 * (i % 4), 0.1 + 0.012 * i, 0.5, 0.9)
+             if specular and i % 3 == 0
+             else pt.Diffuse(0.1 + 0.012 * i, 0.5, 0.9))
+        sb.add_quad(((x, 0, z), (x + 9, 0, z), (x + 9, 0, z + 10),
+                     (x, 0, z + 10)), m)
+    # Level, not tilted down as in the test: the light must be in view, or
+    # the depth-1 films are black.
+    cam = pt.make_camera((50, 60, -60), (0, 0, 1), (0, 1, 0), (64, 64),
+                         70 * pt.DEG2RAD, 1.0)
+    return cam, sb.build()
+
+
+def with_res(cam, res):
+    import dataclasses
+    return dataclasses.replace(cam, res=tuple(res))
+
+
+def tie_gaps(ray_o, ray_d, rows, idx):
+    """Relative gap between the two nearest hits of the rays ``idx`` against
+    the packed rows (dense, plain PyTorch)."""
+    import torch
+    from pathtracer_tpu_torch.linalg import FLOAT_INF
+    from pathtracer_tpu_torch.ops.intersect import _mt
+    tri = rows[:, :9]
+    t, ok = _mt(ray_o[idx, None, :], ray_d[idx, None, :], tri[:, 0:3],
+                tri[:, 3:6], tri[:, 6:9])
+    two = torch.where(ok, t, FLOAT_INF).topk(2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) / two[:, 0]
+
+
+def hold_clusters(name, o, d, cs_d, n_ref):
+    """The cluster kernel on the whole ray batch, without (the default) and
+    with the ray sort, held against the plain version on its first
+    ``n_ref`` rays: the same hit mask, t within CLUSTER_T_RTOL, tid equal
+    but at near-ties; the sorted launch must give the unsorted one's t on
+    every ray.  Returns (largest |t| difference on hits, record)."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+
+    t_k, tid_k = ck.intersect_clusters(o, d, cs_d)
+    t_u, tid_u = ck.intersect_clusters(o, d, cs_d, sort_rays=True)
+    t_p, tid_p = ck.intersect_clusters_reference(o[:n_ref], d[:n_ref], cs_d)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(t_k).all()), f"{name}: non-finite t")
+    hit = tid_p >= 0
+    t_s, tid_s = t_k[:n_ref], tid_k[:n_ref]
+    check(bool(((tid_s >= 0) == hit).all()), f"{name}: hit masks differ")
+    rel = ((t_s - t_p).abs() / t_p.abs())[hit]
+    worst = float(rel.max()) if hit.any() else 0.0
+    check(worst <= CLUSTER_T_RTOL, f"{name}: t differs by {worst:.3e} "
+          f"relative")
+    max_err = float((t_s - t_p)[hit].abs().max()) if hit.any() else 0.0
+    bit_equal = float((t_s == t_p).float().mean())
+    differ = torch.nonzero(tid_s != tid_p).squeeze(1)
+    if differ.numel():
+        gaps = tie_gaps(o, d, cs_d.tri_data, differ)
+        check(bool((gaps <= TIE_RTOL).all()),
+              f"{name}: tid differs away from a near-tie")
+    check(bool(torch.equal(t_u, t_k)), f"{name}: the ray sort changed t")
+    sorted_differ = torch.nonzero(tid_u != tid_k).squeeze(1)
+    if sorted_differ.numel():
+        gaps = tie_gaps(o, d, cs_d.tri_data, sorted_differ)
+        check(bool((gaps <= TIE_RTOL).all()),
+              f"{name}: the ray sort changed a hit away from a near-tie")
+    print(f"{name} rays: {int(hit.sum())} of {n_ref} held against the plain "
+          f"version hit, t bit-equal {bit_equal:.4%}, max rel diff "
+          f"{worst:.3e}, tid differs at {differ.numel()} (near-ties); "
+          f"with the ray sort, on all {o.shape[0]} rays: t equal, tid "
+          f"differs at {sorted_differ.numel()}", flush=True)
+    return max_err, {"rays": o.shape[0], "held": n_ref,
+                     "hits": int(hit.sum()), "t_bit_equal": bit_equal,
+                     "t_max_rel": worst, "tid_differs": differ.numel(),
+                     "sorted_tid_differs": sorted_differ.numel()}
+
+
+def phase_cluster(pt, dev, record):
+    """Phase 6; returns the largest |t| difference on hits."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.camera import get_rays
+
+    print("== 6 cluster kernel against its plain version "
+          "(sphere_in_box(50, 100))", flush=True)
+    cam, sb = pt.meshes.sphere_in_box(50, 100)
+    scene = sb.build()
+    t0 = time.perf_counter()
+    bvh = pt.build_bvh(scene)
+    bvh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = pt.build_clusters(scene, bvh=bvh)
+    cl_s = time.perf_counter() - t0
+    print(f"{scene.num_tris} triangles: BVH {bvh_s:.3f} s, "
+          f"{cs.num_clusters} clusters {cl_s:.3f} s on the host", flush=True)
+    cs_d = cs.to(dev)
+    gen = np.random.default_rng(6)
+    n = CLUSTER_RAYS
+    w = torch.from_numpy(gen.integers(0, LARGE_RES[0], n)).to(dev)
+    h = torch.from_numpy(gen.integers(0, LARGE_RES[1], n)).to(dev)
+    u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
+    cam_o, cam_d = get_rays(cam.to(dev), w, h, u[0], u[1])
+    rnd_o = torch.from_numpy(gen.uniform(1, 499, (n, 3)).astype(np.float32))
+    rnd_d = gen.normal(size=(n, 3)).astype(np.float32)
+    rnd_d /= np.linalg.norm(rnd_d, axis=-1, keepdims=True)
+    rays = {"camera": (cam_o.contiguous(), cam_d.contiguous()),
+            "random": (rnd_o.to(dev), torch.from_numpy(rnd_d).to(dev))}
+    max_err = 0.0
+    out = {}
+    for name, (o, d) in rays.items():
+        err, out[name] = hold_clusters(name, o, d, cs_d, n)
+        max_err = max(max_err, err)
+
+    cam64, scene_d = lit_sphere_camera(pt, (64, 64)).to(dev), scene.to(dev)
+    f_cl = pt.render_film(cam64, scene_d, 2, 3, bvh=cs, backend="cluster")
+    f_bvh = pt.render_film(cam64, scene_d, 2, 3, bvh=bvh, backend="bvh")
+    torch.cuda.synchronize()
+    film_max, share = film_diff(f_cl.data, f_bvh.data)
+    check(float(f_cl.data.max()) > 0.0, "cluster film is black")
+    check(share <= MAX_FLIP_SHARE,
+          f"cluster vs bvh: {share:.4%} of pixels beyond {FILM_ATOL}")
+    print(f"render_film cluster vs bvh (64^2, 2 spp, depth 3): max abs diff "
+          f"{film_max:.3e}, pixels beyond {FILM_ATOL}: {share:.4%}",
+          flush=True)
+    out["film"] = {"max_abs": film_max, "share": share}
+    record["cluster"] = out
+    return max_err
+
+
+def phase_beam(pt, dev, record):
+    """Phase 7; returns the largest film difference per sample."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+
+    print("== 7 beam kernel against its plain version", flush=True)
+    _, sb = pt.meshes.sphere_in_box(50, 100)
+    sphere = sb.build()
+    inline_cam, inline = inline_scene(pt)
+    inline_spec = inline_scene(pt, specular=True)[1]
+    # The four kernel instances: table materials (sphere9812, cornell;
+    # specular: modified_cornell) and inline ones (inline70, and
+    # inline70spec with specular quads), each with and without the
+    # specular branch.
+    scenes = {"sphere9812": lambda r: (lit_sphere_camera(pt, r), sphere),
+              "cornell": lambda r: pt.cornell_box(res=r),
+              "specular": lambda r: pt.modified_cornell(0.05, res=r),
+              "inline70": lambda r: (with_res(inline_cam, r), inline),
+              "inline70spec": lambda r: (with_res(inline_cam, r),
+                                         inline_spec)}
+    out = {}
+    max_abs = 0.0
+    spp = 4
+    for name, make in scenes.items():
+        # The Cornell boxes' light is out of a 200x72 view, so their
+        # depth-1 films would be black: they take the transposed shape.
+        for res in ((64, 64), (72, 200) if name in ("cornell", "specular")
+                    else (200, 72)):
+            cam, scene = make(res)
+            cam, scene = cam.to(dev), scene.to(dev)
+            accel = bk._accel_for(scene)
+            check(scene.has_specular == (name in ("specular",
+                                                  "inline70spec"))
+                  and accel.mats_inline == name.startswith("inline"),
+                  f"{name}: not the kernel instance it stands for")
+            for depth in (1, DEPTH):
+                got = bk.render_sum_beam(cam, scene, 0, spp, depth) / spp
+                want = bk.render_sum_beam_reference(cam, scene, 0, spp,
+                                                    depth) / spp
+                torch.cuda.synchronize()
+                diff, share = film_diff(got, want)
+                equal = float((got == want).float().mean())
+                key = f"{name} {res[0]}x{res[1]} depth {depth}"
+                print(f"{key}: max abs diff {diff:.3e}, pixels beyond "
+                      f"{FILM_ATOL}: {share:.4%}, bit-equal values "
+                      f"{equal:.4%}, mean {float(got.mean()):.5f}",
+                      flush=True)
+                check(float(got.mean()) > 0.0, f"{key}: black film")
+                check(share <= MAX_FLIP_SHARE,
+                      f"{key}: {share:.4%} of pixels beyond {FILM_ATOL}")
+                max_abs = max(max_abs, diff)
+                out[key] = {"max_abs": diff, "share": share,
+                            "bit_equal": equal}
+
+    cam, scene = scenes["sphere9812"]((200, 72))
+    cam, scene = cam.to(dev), scene.to(dev)
+    full = bk.render_tiles_beam(cam, scene, 0, 4, DEPTH)
+    band = bk.render_tiles_beam(cam, scene, 0, 4, DEPTH, tile0=5, n_tiles=3)
+    split = (bk.render_tiles_beam(cam, scene, 0, 1, DEPTH)
+             + bk.render_tiles_beam(cam, scene, 1, 3, DEPTH))
+    torch.cuda.synchronize()
+    tile = bk.TILE_PX
+    check(torch.equal(band, full[:, 5 * tile:8 * tile]),
+          "band launch differs from the same tiles of the full launch")
+    window = float((split - full).abs().max())
+    check(window <= WINDOW_ATOL, f"two windows differ from one by {window}")
+    print(f"band tiles [5, 8) of 16 bit-identical; window split max diff "
+          f"{window:.3e}", flush=True)
+    sb = pt.SceneBuilder()
+    sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
+                    pt.HostMaterial(pt.DIFFUSE, color=(1, 1, 1),
+                                    emit=(1, 0, 0)))
+    try:
+        bk.render_sum_beam(cam, sb.build().to(dev), 0, 1, 1)
+    except ValueError as e:
+        print(f"emission check raised: {e}", flush=True)
+    else:
+        raise RuntimeError("chip_smoke: emissive non-EMIT scene accepted")
+    out["band_window_max"] = window
+    record["beam"] = out
+    return max_abs
+
+
+def golden_compare(pt, png, golden):
+    """(PSNR in gamma space, linear mean of the render, of the golden)."""
+    import numpy as np
+    got = pt.read_png(png).astype(np.float64) / 255.0
+    ref = pt.read_png(os.path.join(REPO, golden)).astype(np.float64) / 255.0
+    check(got.shape == ref.shape, f"{png}: shape {got.shape} vs {ref.shape}")
+    return (pt.psnr(got, ref), float((got ** 2.2).mean()),
+            float((ref ** 2.2).mean()))
+
+
+def hold_main_path_bands(pt, cam, scene, spp):
+    """The beam kernel at the main path's launch shape (its padded film, its
+    accel and its samples per launch) held against the plain version on two
+    bands of BAND_TILES tiles: the film's first tiles and the tiles at its
+    centre, the first launch's sample window.  Returns (record, largest
+    per-sample difference)."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+
+    spp_call = bk._default_spp_per_call(cam, spp, DEPTH)
+    wp, hp = bk._padded_res(*cam.res)
+    centre_sq = (hp // 2 // 64) * (wp // 64) + wp // 2 // 64
+    out, worst, lit = {}, 0.0, 0.0
+    for tile0 in (0, centre_sq * (64 * 64 // bk.TILE_PX)):
+        kw = dict(tile0=tile0, n_tiles=BAND_TILES)
+        got = bk.render_tiles_beam(cam, scene, 0, spp_call, DEPTH, **kw)
+        want = bk.render_tiles_beam_reference(cam, scene, 0, spp_call, DEPTH,
+                                              **kw)
+        torch.cuda.synchronize()
+        diff, share = film_diff(got.T / spp_call, want.T / spp_call)
+        equal = float((got == want).float().mean())
+        lit = max(lit, float(got.mean()))
+        key = f"tiles [{tile0}, {tile0 + BAND_TILES})"
+        print(f"  {key}, {spp_call} spp (one main-path launch), kernel vs "
+              f"plain: max abs diff {diff:.3e}, pixels beyond {FILM_ATOL}: "
+              f"{share:.4%}, bit-equal values {equal:.4%}", flush=True)
+        check(share <= MAX_FLIP_SHARE,
+              f"{key}: {share:.4%} of pixels beyond {FILM_ATOL}")
+        worst = max(worst, diff)
+        out[key] = {"spp": spp_call, "max_abs": diff, "share": share,
+                    "bit_equal": equal}
+    check(lit > 0.0, "the main path's bands are black")
+    return out, worst
+
+
+def phase_large(pt, dev, record):
+    """Phase 8; returns (beam launches, cluster launches) of the main
+    path's renders and the largest per-sample difference of its bands."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    print(f"== 8 large-scene main path at {LARGE_RES[0]}x{LARGE_RES[1]}, "
+          f"depth {DEPTH}, backend='auto'", flush=True)
+    out = {}
+    beam_launches = 0
+    band_err = 0.0
+    scenes = {
+        "sphere9812": (pt.meshes.sphere_in_box(50, 100), SPHERE_SPP,
+                       "docs/sphere9812_beam_2048spp.png"),
+        "garden105708": (pt.meshes.mesh_garden(), GARDEN_SPP,
+                         "docs/garden105708_beam_2048spp.png"),
+    }
+    for name, ((cam, sb), spp, golden) in scenes.items():
+        scene = sb.build()
+        cam_d, scene_d = cam.to(dev), scene.to(dev)
+        t0 = time.perf_counter()
+        pt.build_bvh(scene)
+        bvh_s = time.perf_counter() - t0
+        bk._ACCEL_CACHE.clear()     # time the host build, not the cache
+        t0 = time.perf_counter()
+        accel = bk._accel_for(scene_d)
+        accel_s = time.perf_counter() - t0
+        print(f"{name}: {scene.num_tris} triangles; host build: BVH "
+              f"{bvh_s:.3f} s, beam accel (BVH included, and the copy to "
+              f"the card) {accel_s:.3f} s, "
+              f"{accel.num_superclusters} superclusters, "
+              f"{accel.num_clusters} clusters", flush=True)
+        png = os.path.join(OUT_DIR, f"chip_smoke_{name}_512.png")
+        ttk.LAUNCHES = ck.LAUNCHES = bk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        film = pt.render(cam_d, scene_d, samples=spp, depth=DEPTH,
+                         filename=png)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = bk.LAUNCHES
+        check(launches > 0, f"{name}: the main path launched no beam kernel")
+        check(ttk.LAUNCHES == 0 and ck.LAUNCHES == 0,
+              f"{name}: the main path launched another kernel")
+        beam_launches += launches
+        img = film.data
+        check(tuple(img.shape) == (LARGE_RES[1], LARGE_RES[0], 3),
+              f"{name}: film shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite film")
+        check(float(img.mean()) > 0.01, f"{name}: black film")
+        entry = {"spp": spp, "seconds": seconds, "launches": launches,
+                 "bvh_s": bvh_s, "accel_s": accel_s,
+                 "gamma_mean": float(img.mean())}
+        if name == "sphere9812":
+            # The committed render is the 256^2 crop of this view.
+            png = os.path.join(OUT_DIR, f"chip_smoke_{name}_256.png")
+            pt.render(with_res(cam_d, (256, 256)), scene_d,
+                      samples=GOLDEN_SPP, depth=DEPTH, filename=png,
+                      verbose=False)
+            entry["golden_spp"] = GOLDEN_SPP
+        psnr, mean, ref_mean = golden_compare(pt, png, golden)
+        print(f"{name}: {launches} beam launches, {seconds:.3f} s wall, "
+              f"against {golden}: PSNR {psnr:.2f} dB, linear mean "
+              f"{mean:.5f} vs {ref_mean:.5f}", flush=True)
+        check(abs(mean - ref_mean) <= GOLDEN_MEAN_RTOL * ref_mean,
+              f"{name}: linear mean {mean} vs the golden's {ref_mean}")
+        check(psnr >= GOLDEN_MIN_PSNR[name], f"{name}: PSNR {psnr:.2f} dB")
+        entry.update(psnr=psnr, linear_mean=mean, golden_mean=ref_mean)
+        entry["bands"], err = hold_main_path_bands(pt, cam_d, scene_d, spp)
+        band_err = max(band_err, err)
+        out[name] = entry
+
+    cam, sb = pt.meshes.sphere_in_box(50, 100)
+    cam_d, scene_d = cam.to(dev), sb.build().to(dev)
+    ttk.LAUNCHES = ck.LAUNCHES = bk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    film = pt.render(cam_d, scene_d, samples=CLUSTER_SPP, depth=DEPTH,
+                     backend="cluster", filename=os.path.join(
+                         OUT_DIR, "chip_smoke_sphere9812_cluster.png"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cluster_launches = ck.LAUNCHES
+    check(cluster_launches > 0, "backend='cluster' launched no kernel")
+    check(bool(torch.isfinite(film.data).all())
+          and float(film.data.mean()) > 0.01, "cluster film black or bad")
+    print(f"sphere9812 backend='cluster': {cluster_launches} launches, "
+          f"{seconds:.3f} s wall at {CLUSTER_SPP} spp", flush=True)
+    out["cluster"] = {"spp": CLUSTER_SPP, "seconds": seconds,
+                      "launches": cluster_launches}
+    record["large"] = out
+    return beam_launches, cluster_launches, band_err
+
+
+def phase_timing(pt, dev, card, record):
+    """Phase 9; returns {kernel: (ms, plain_ms)} and, under "cluster_err",
+    the largest |t| difference of the garden's and the sphere's held
+    rays."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.camera import get_rays
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+
+    print("== 9 timing", flush=True)
+    out = {}
+    cluster_err = 0.0
+    cam, sb = pt.meshes.sphere_in_box(50, 100)
+    scene = sb.build()
+    cam_d, scene_d = cam.to(dev), scene.to(dev)
+
+    cam_t = with_res(cam_d, TIME_BEAM_RES)
+    res = {}
+    plain_ms, plain_all = timed_ms(lambda: res.__setitem__(
+        "p", bk.render_sum_beam_reference(cam_t, scene_d, 0, TIME_BEAM_SPP,
+                                          DEPTH)), calls=1)
+    beam_ms, beam_all = timed_ms(lambda: res.__setitem__(
+        "k", bk.render_sum_beam(cam_t, scene_d, 0, TIME_BEAM_SPP, DEPTH)),
+        calls=KERNEL_CALLS)
+    diff, share = film_diff(res["k"], res["p"])
+    check(share <= MAX_FLIP_SHARE, f"beam timing shape: {share:.4%}")
+    print(f"{card}: beam kernel {beam_ms:.3f} ms (runs {beam_all}), plain "
+          f"version {plain_ms:.3f} ms (runs {plain_all}) per call at "
+          f"{TIME_BEAM_RES[0]}x{TIME_BEAM_RES[1]}, {TIME_BEAM_SPP} spp, "
+          f"depth {DEPTH}; max abs diff {diff:.3e}", flush=True)
+    out["beam"] = {"ms": beam_ms, "plain_ms": plain_ms, "runs": beam_all,
+                   "plain_runs": plain_all}
+
+    gcam, gsb = pt.meshes.mesh_garden()
+    gscene = gsb.build()
+    gcam_d, gscene_d = gcam.to(dev), gscene.to(dev)
+    gen = np.random.default_rng(9)
+    n = TIME_CLUSTER_RAYS
+    out["cluster"] = {}
+    for name, c, s in (("sphere9812", cam_d, scene),
+                       ("garden105708", gcam_d, gscene)):
+        w = torch.from_numpy(gen.integers(0, LARGE_RES[0], n)).to(dev)
+        h = torch.from_numpy(gen.integers(0, LARGE_RES[1], n)).to(dev)
+        u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
+        o, d = get_rays(c, w, h, u[0], u[1])
+        o, d = o.contiguous(), d.contiguous()
+        cs = pt.build_clusters(s).to(dev)
+        err, held = hold_clusters(f"{name} ({cs.num_clusters} clusters) "
+                                  f"camera", o, d, cs, HELD_CLUSTER_RAYS)
+        cluster_err = max(cluster_err, err)
+        fns = [("unsorted", lambda: ck.intersect_clusters(o, d, cs)),
+               ("sorted", lambda: ck.intersect_clusters(o, d, cs,
+                                                        sort_rays=True))]
+        if name == "sphere9812":    # the garden's would take about 30 s
+            fns.append(("plain",
+                        lambda: ck.intersect_clusters_reference(o, d, cs)))
+        cl = {key: timed_ms(fn, calls=1 if key == "plain" else 4)
+              for key, fn in fns}
+        plain = (f"; plain version {cl['plain'][0]:.3f} ms"
+                 if "plain" in cl else "")
+        print(f"{card}: cluster kernel per 2^20 camera rays of {name} "
+              f"({cs.num_clusters} clusters): {cl['unsorted'][0]:.3f} ms "
+              f"without the ray sort (the default), {cl['sorted'][0]:.3f} ms "
+              f"with it{plain}", flush=True)
+        out["cluster"][name] = {k: {"ms": v[0], "runs": v[1]}
+                                for k, v in cl.items()}
+        out["cluster"][name]["held"] = held
+        if name == "sphere9812":
+            times = (cl["unsorted"][0], cl["plain"][0])
+
+    renders = {"sphere9812": (cam_d, scene_d, scene),
+               "garden105708": (gcam_d, gscene_d, gscene)}
+    out["renders"] = {}
+    unsorted = ck.intersect_clusters
+    for name, (c, s, host) in renders.items():
+        bk._accel_for(s)            # host build outside the timed calls
+        beam_spp, cluster_spp = TIME_RENDER_SPP[name]
+        segs = {"beam": LARGE_RES[0] * LARGE_RES[1] * beam_spp * DEPTH,
+                "cluster": LARGE_RES[0] * LARGE_RES[1] * cluster_spp * DEPTH}
+        for backend, spp in (("beam", beam_spp), ("cluster", cluster_spp)):
+            ms, runs = timed_ms(lambda: pt.render_film(
+                c, s, spp, DEPTH, backend=backend), calls=1)
+            rate = segs[backend] / ms * 1e3
+            print(f"{card}: {name} {backend} 512^2, {spp} spp, depth "
+                  f"{DEPTH}: {ms:.3f} ms per render (runs {runs}), "
+                  f"{rate:.4e} ray segments/s", flush=True)
+            out["renders"][f"{name} {backend}"] = {
+                "spp": spp, "ms": ms, "runs": runs, "segments_per_s": rate}
+        # The cluster render without the kernel's ray sort (the default)
+        # and with it, off/on/on/off, with the cluster set built once so
+        # that the host build's noise stays out of the comparison.
+        cs = pt.build_clusters(host).to(dev)
+        ab = []
+        for sort in (False, True, True, False):
+            ck.intersect_clusters = (functools.partial(
+                unsorted, sort_rays=True) if sort else unsorted)
+            try:
+                ab.append(timed_ms(lambda: pt.render_film(
+                    c, s, cluster_spp, DEPTH, backend="cluster", bvh=cs),
+                    calls=1)[0])
+            finally:
+                ck.intersect_clusters = unsorted
+        print(f"{card}: {name} cluster 512^2, {cluster_spp} spp, depth "
+              f"{DEPTH}, cluster set built once, ms per render without/with/"
+              f"with/without the ray sort: {ab}", flush=True)
+        out["renders"][f"{name} cluster sort off/on/on/off"] = ab
+    tests = bk.count_tri_tests(cam_d, scene_d, samples=8, depth=DEPTH)
+    print(f"sphere9812 512^2: {tests:.2f} triangle rows tested per ray "
+          f"segment (beam kernel, per ray)", flush=True)
+    out["sphere9812_tri_tests_per_segment"] = tests
+    record["large_timing"] = out
+    return {"beam_kernel": (beam_ms, plain_ms), "cluster_kernel": times,
+            "cluster_err": cluster_err}
 
 
 def main():
@@ -240,19 +771,31 @@ def main():
                         "kernel_runs_ms": kernel_all, "plain_ms": plain_ms,
                         "plain_runs_ms": plain_all, "max_abs": max_abs,
                         "share": share, "segments": segments}
+    cluster_err = phase_cluster(pt, dev, record)
+    beam_err = phase_beam(pt, dev, record)
+    beam_launches, cluster_launches, band_err = phase_large(pt, dev, record)
+    beam_err = max(beam_err, band_err)
+    times = phase_timing(pt, dev, card, record)
+    cluster_err = max(cluster_err, times["cluster_err"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
+    kernels = [("trace_kernel", "trace_kernel.py:96", launches, max_abs,
+                (ms, plain_ms)),
+               ("cluster_kernel", "cluster_kernel.py:57", cluster_launches,
+                cluster_err, times["cluster_kernel"]),
+               ("beam_kernel", "beam_kernel.py:167", beam_launches, beam_err,
+                times["beam_kernel"])]
     print(json.dumps({"kernels": [{
-        "name": "trace_kernel",
+        "name": name,
         "route": "cuda",
-        "source": "pathtracer_tpu_torch/csrc/trace_kernel.cu",
-        "replaces": "pathtracer_tpu/ops/pallas/trace_kernel.py:96",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        "source": f"pathtracer_tpu_torch/csrc/{name}.cu",
+        "replaces": f"pathtracer_tpu/ops/pallas/{where}",
+        "launches": n,
+        "max_abs_err": err,
+        "ms": t[0],
+        "plain_ms": t[1],
+    } for name, where, n, err, t in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

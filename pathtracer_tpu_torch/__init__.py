@@ -7,19 +7,31 @@ Typical use, on an NVIDIA GPU:
     cam, scene = cam.to("cuda"), scene.to("cuda")
     film = pt.render(cam, scene, samples=256, depth=5, filename="out.png")
 
+Large meshes take the same call:
+
+    from pathtracer_tpu_torch import meshes
+    cam, sb = meshes.sphere_in_box(50, 100)          # 9,812 triangles
+    film = pt.render(cam.to("cuda"), sb.build().to("cuda"), samples=64)
+
 The render runs on the device of the scene's tensors.  On a CUDA scene the
-auto backend launches the hand-written megakernel in ``csrc/``, built with
-``nvcc`` at first use; on a CPU scene it runs the plain PyTorch path.
+auto backend launches a hand-written kernel from ``csrc/`` (the megakernel
+up to 512 triangles, the coherent-beam kernel above), built with ``nvcc`` at
+first use; on a CPU scene it runs the plain PyTorch path.
 
 Module map (each mirrors the module of the same name in pathtracer_tpu):
     linalg, rng                 L1 math and RNG
     camera, materials, scene    L2 pinhole camera, BRDF sampling, SoA scene
     image                       L3b film and PNG I/O
+    bvh, clusters               SAH BVH, cluster set and beam accel builders
+    meshes, obj_loader          procedural meshes, OBJ/MTL import
     ops.intersect, ops.trace    plain PyTorch intersection and bounce loop
-    ops.cuda.trace_kernel       the megakernel's wrapper and plain version
+    ops.cuda.trace_kernel       the kernels' wrappers and plain versions
+    ops.cuda.cluster_kernel
+    ops.cuda.beam_kernel
     render                      L4 drivers
     convert                     numpy arrays -> Camera / Scene
-    utils                       timer, render checkpoints, kernel build
+    utils                       timer, checkpoints, kernel build, native lib
+    examples                    runnable example renders
 """
 
 from .linalg import DEG2RAD, EPS, FLOAT_INF, SHIFT_BIAS  # noqa: F401
@@ -33,6 +45,12 @@ from .scene import (  # noqa: F401
     cornell_box, modified_cornell, corner_scene,
 )
 from .image import Film, psnr, read_png, write_png  # noqa: F401
+from .bvh import FlatBVH, build_bvh, print_tree  # noqa: F401
+from .clusters import (  # noqa: F401
+    ClusterSet, BeamAccel, build_clusters, build_beam_accel,
+)
+from .obj_loader import load_obj, load_obj_scene  # noqa: F401
+from . import meshes  # noqa: F401
 from .render import (  # noqa: F401
     render, render_film, render_normals, render_debug_uv,
 )

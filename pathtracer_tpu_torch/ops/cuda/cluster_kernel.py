@@ -1,0 +1,171 @@
+"""Cluster-traversal intersection: host wrapper and plain version.
+
+The kernel, ``csrc/cluster_kernel.cu``, replaces
+``pathtracer_tpu/ops/pallas/cluster_kernel.py::_kernel``: the nearest hit
+``(t, tid)`` of a flat ray batch against a ``clusters.ClusterSet``, with a
+slab test per cluster box and Möller–Trumbore over the rows of every
+cluster a ray enters.
+
+What bounds it on this card: fp32 issue (every ray tests the boxes of all
+clusters, front to back, and the triangles of the ones it enters) and
+divergence between the rays of a warp.  Design: one thread per ray and a
+block of ``BLOCK_RAYS`` rays in the part of the TPU's ray tile.  The wrapper
+gives each block its clusters in front-to-back order by distance from the
+block's mean origin; the kernel keeps the cluster boxes, starts and counts
+in shared memory when they fit.  On request (``sort_rays=True``) the wrapper
+first sorts the rays by origin Morton cell and direction octant
+(``_sort_keys``), as the TPU driver does, so a block's rays are coherent.
+On the H100 the sort costs more than it saves, in the kernel call and in
+the cluster render, on 9.8k and 105k triangles alike (PERF.md), so it is
+off by default.
+
+On a CUDA batch ``intersect_clusters`` launches the kernel or raises; it
+takes the plain version, ``intersect_clusters_reference`` (dense
+Möller–Trumbore against every packed row), only when the rays lie on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ...clusters import ClusterSet
+from ...utils import build
+from ..intersect import intersect_packed
+
+BLOCK_RAYS = 256      # rays per CUDA block; csrc/cluster_kernel.cu kThreads
+_MORTON_BITS = 6      # per axis: 18-bit cell, 3-bit octant sort keys
+
+LAUNCHES = 0          # kernel launches since the last reset
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """Interleave the low 6 bits of x with two zero bits each (Morton)."""
+    x = (x | (x << 8)) & 0x0300F
+    x = (x | (x << 4)) & 0x030C3
+    x = (x | (x << 2)) & 0x09249
+    return x
+
+
+def _sort_keys(ray_o, ray_d, lb, rt) -> torch.Tensor:
+    """Coherence keys: origin Morton cell (major) | direction octant."""
+    span = torch.clamp_min(rt - lb, 1e-6)
+    q = torch.clamp(((ray_o - lb) / span) * (1 << _MORTON_BITS), 0.0,
+                    (1 << _MORTON_BITS) - 1).to(torch.int32)
+    morton = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
+              | (_spread3(q[:, 2]) << 2))
+    octant = ((ray_d[:, 0] > 0).to(torch.int32)
+              | ((ray_d[:, 1] > 0).to(torch.int32) << 1)
+              | ((ray_d[:, 2] > 0).to(torch.int32) << 2))
+    return (morton << 3) | octant
+
+
+def _check_rays(ray_o, ray_d, cs: ClusterSet):
+    if (ray_o.dim() != 2 or ray_o.shape[-1] != 3
+            or ray_d.shape != ray_o.shape):
+        raise ValueError(f"need ray_o, ray_d of shape (R, 3), got "
+                         f"{tuple(ray_o.shape)} and {tuple(ray_d.shape)}")
+    if ray_o.dtype != torch.float32 or ray_d.dtype != torch.float32:
+        raise ValueError(f"need float32 rays, got {ray_o.dtype}, "
+                         f"{ray_d.dtype}")
+    if ray_d.device != ray_o.device or cs.device != ray_o.device:
+        raise ValueError(f"rays on {ray_o.device} and {ray_d.device}, "
+                         f"clusters on {cs.device}")
+
+
+def intersect_clusters_reference(ray_o: torch.Tensor, ray_d: torch.Tensor,
+                                 cs: ClusterSet
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: dense Möller–Trumbore of every ray against
+    every packed row (in chunks of rays), the nearest row by argmin-first,
+    mapped to its scene triangle id."""
+    _check_rays(ray_o, ray_d, cs)
+    t, row = intersect_packed(ray_o, ray_d, cs.tri_data)
+    tid = torch.where(row >= 0, cs.tid_map[row.clamp_min(0)], -1)
+    return t, tid.to(torch.int32)
+
+
+def _block_order(ray_o: torch.Tensor, cs: ClusterSet) -> torch.Tensor:
+    """(n_blocks, C) int32: each block's clusters by ascending squared
+    distance of the box center from the block's mean ray origin."""
+    n_blocks = ray_o.shape[0] // BLOCK_RAYS
+    origin = ray_o.reshape(n_blocks, BLOCK_RAYS, 3).mean(dim=1)
+    centers = cs.centers
+    d2 = ((origin * origin).sum(-1)[:, None] - 2.0 * (origin @ centers.T)
+          + (centers * centers).sum(-1)[None, :])
+    return torch.argsort(d2, dim=1).to(torch.int32).contiguous()
+
+
+def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
+                       cs: ClusterSet, *, sort_rays: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest hit of flat rays (R, 3) against the clusters: (t (R,),
+    tid (R,) int32), t = FLOAT_INF and tid = -1 on a miss.
+
+    ``cs`` lies on the rays' device.  A CUDA batch launches the kernel on
+    the current stream without synchronising; a CPU batch takes the plain
+    version.  ``sort_rays`` sorts the rays for coherence and restores their
+    order after the kernel; it changes no hit."""
+    global LAUNCHES
+    _check_rays(ray_o, ray_d, cs)
+    dev = ray_o.device
+    if dev.type == "cpu":
+        return intersect_clusters_reference(ray_o, ray_d, cs)
+    if dev.type != "cuda":
+        raise ValueError(f"the cluster kernel runs on CUDA, not {dev}")
+    R = ray_o.shape[0]
+    if R == 0:
+        return intersect_clusters_reference(ray_o, ray_d, cs)
+    Rp = -(-R // BLOCK_RAYS) * BLOCK_RAYS
+    lb, rt = cs.scene_bounds
+    if Rp != R:
+        # Padding rays start beyond the +x face and point +x: they can
+        # enter no cluster box.
+        pad_o = (rt + 1.0).expand(Rp - R, 3)
+        pad_d = torch.zeros((Rp - R, 3), dtype=torch.float32, device=dev)
+        pad_d[:, 0] = 1.0
+        ray_o = torch.cat([ray_o, pad_o])
+        ray_d = torch.cat([ray_d, pad_d])
+    perm = None
+    if sort_rays:
+        perm = torch.argsort(_sort_keys(ray_o, ray_d, lb, rt), stable=True)
+        ray_o = ray_o[perm]
+        ray_d = ray_d[perm]
+    order = _block_order(ray_o, cs)
+    planes = torch.cat([ray_o.T, ray_d.T]).contiguous()     # (6, Rp)
+    tris = cs.tri_data.contiguous()
+    bounds = cs.bounds.contiguous()
+    start = cs.start.contiguous()
+    count = cs.count.contiguous()
+    for name, x, dtype in (("tri_data", tris, torch.float32),
+                           ("bounds", bounds, torch.float32),
+                           ("start", start, torch.int32),
+                           ("count", count, torch.int32)):
+        if x.dtype != dtype:
+            raise ValueError(f"{name}: need {dtype}, got {x.dtype}")
+    t = torch.empty(Rp, dtype=torch.float32, device=dev)
+    slot = torch.empty(Rp, dtype=torch.int32, device=dev)
+
+    lib = build.load_library()
+    fn = lib.pt_cluster_intersect
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = fn(planes.data_ptr(), tris.data_ptr(), bounds.data_ptr(),
+             start.data_ptr(), count.data_ptr(), order.data_ptr(),
+             t.data_ptr(), slot.data_ptr(), Rp, cs.num_clusters, index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster kernel launch failed: "
+                           f"{build.error_string(lib, err)} (cudaError {err})")
+    LAUNCHES += 1
+    tid = torch.where(slot >= 0, cs.tid_map[slot.clamp_min(0).long()], -1)
+    if perm is not None:
+        t = torch.empty_like(t).index_copy_(0, perm, t)
+        tid = torch.empty_like(tid).index_copy_(0, perm, tid)
+    return t[:R], tid[:R].to(torch.int32)

@@ -1,10 +1,17 @@
 """Ray-scene intersection, the PyTorch counterpart of
-``pathtracer_tpu/ops/intersect.py::intersect_brute``.
+``pathtracer_tpu/ops/intersect.py``.
 
-Dense Möller–Trumbore of every ray against every triangle.  Invalid
-candidates are masked to FLOAT_INF and the nearest hit is the FIRST index
-of the minimum, the tie rule the CUDA kernel's strict ``t < best_t`` in
-triangle order reproduces.
+* ``intersect_brute``: dense Möller–Trumbore of every ray against every
+  triangle.  Invalid candidates are masked to FLOAT_INF and the nearest hit
+  is the FIRST index of the minimum, the tie rule the CUDA kernels' strict
+  ``t < best_t`` in row order reproduces.
+* ``intersect_packed``: the same test against packed ``[v1, e1, e2]`` rows,
+  in chunks of rays: the plain version of the cluster and beam kernels.
+* ``intersect_bvh``: per-ray stack traversal of the flat BVH, one masked
+  step of all rays with a non-empty stack per loop iteration; the CPU
+  oracle for large scenes and the ``"bvh"`` render backend.
+
+All return ``(t, id)`` with ``t = FLOAT_INF`` and ``id = -1`` on a miss.
 """
 
 from __future__ import annotations
@@ -44,3 +51,136 @@ def intersect_brute(ray_o, ray_d, v1, v2, v3):
     tmin = torch.amin(t, dim=-1)
     tid = torch.where(tmin < FLOAT_INF, tid, -1)
     return tmin, tid
+
+
+def _mt(o, d, v1, e1, e2):
+    """Möller–Trumbore with precomputed edges; broadcasting (..., 3).
+    Returns (t, valid); u <= 1 follows from v >= 0 and u + v <= 1."""
+    h = cross(d, e2)
+    a = dot(e1, h)
+    f = 1.0 / a
+    s = o - v1
+    u = f * dot(s, h)
+    q = cross(s, e1)
+    v = f * dot(d, q)
+    t = f * dot(e2, q)
+    valid = ((torch.abs(a) >= EPS) & (u >= 0.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > 0.0))
+    return t, valid
+
+
+def intersect_packed(ray_o, ray_d, rows, rays_per_chunk=None):
+    """Nearest hit of flat rays (R, 3) against packed rows (P, >= 9) of
+    [v1, e1, e2]: (t (R,), row (R,) int64 or -1).  Argmin-first in row
+    order; rays are taken in chunks that bound the (chunk, P) temporaries
+    to about 2^22 elements each."""
+    tri = rows[:, :9]
+    v1, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    R = ray_o.shape[0]
+    if rays_per_chunk is None:
+        rays_per_chunk = max(1, (1 << 22) // max(1, tri.shape[0]))
+    ts, ids = [], []
+    for r0 in range(0, R, rays_per_chunk):
+        o = ray_o[r0:r0 + rays_per_chunk, None, :]
+        d = ray_d[r0:r0 + rays_per_chunk, None, :]
+        t, valid = _mt(o, d, v1, e1, e2)
+        t = torch.where(valid, t, FLOAT_INF)
+        row = torch.argmin(t, dim=-1)
+        tmin = torch.amin(t, dim=-1)
+        ts.append(tmin)
+        ids.append(torch.where(tmin < FLOAT_INF, row, -1))
+    if not ts:
+        return (ray_o.new_empty((0,)),
+                torch.empty((0,), dtype=torch.int64, device=ray_o.device))
+    return torch.cat(ts), torch.cat(ids)
+
+
+def intersect_one_triangle(ray_o, ray_d, v1, v2, v3):
+    """Möller–Trumbore of rays against one triangle per ray, all (..., 3)
+    (the BVH leaf test).  Returns (t, valid), t = FLOAT_INF where not
+    valid."""
+    e1 = v2 - v1
+    e2 = v3 - v1
+    h = cross(ray_d, e2)
+    a = dot(e1, h)
+    f = 1.0 / a
+    s = ray_o - v1
+    u = f * dot(s, h)
+    q = cross(s, e1)
+    v = f * dot(ray_d, q)
+    t = f * dot(e2, q)
+    valid = ((torch.abs(a) >= EPS) & (u >= 0.0) & (u <= 1.0)
+             & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0))
+    return torch.where(valid, t, FLOAT_INF), valid
+
+
+def aabb_hit(ray_o, inv_ray_d, lb, rt):
+    """Slab test: hit iff tmin <= tmax and tmax >= 0."""
+    t1 = (lb - ray_o) * inv_ray_d
+    t2 = (rt - ray_o) * inv_ray_d
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    return (tmax >= 0.0) & (tmin <= tmax)
+
+
+def intersect_bvh(ray_o, ray_d, flat, v1, v2, v3, max_leaf: int,
+                  stack_size: int):
+    """Per-ray stack traversal of a ``bvh.FlatBVH``.
+
+    ray_o, ray_d: (R, 3); flat on the rays' device; max_leaf: the largest
+    leaf; stack_size: per-ray stack capacity (>= depth + 1).  Each loop
+    iteration pops one node for every ray whose stack is not empty: a hit
+    leaf tests its triangles in range order (strict ``t < best_t``), a hit
+    interior node pushes its left, then its right child.  The visit order
+    and tie rule are those of the JAX package's ``intersect_bvh``.
+    """
+    R = ray_o.shape[0]
+    dev = ray_o.device
+    inv_d = 1.0 / ray_d
+    stack = torch.zeros((R, stack_size), dtype=torch.int64, device=dev)
+    sp = torch.ones(R, dtype=torch.int64, device=dev)  # root pre-seeded
+    best_t = torch.full((R,), FLOAT_INF, dtype=torch.float32, device=dev)
+    best_tid = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    left, right = flat.left.long(), flat.right.long()
+    tri_start, tri_end = flat.tri_start.long(), flat.tri_end.long()
+    tri_idx = flat.tri_idx.long()
+    ks = torch.arange(max_leaf, device=dev)
+    top_slot = stack_size - 1
+    while True:
+        rays = torch.nonzero(sp > 0).squeeze(1)
+        if rays.numel() == 0:
+            break
+        top = sp[rays] - 1
+        node = stack[rays, top]
+        sp[rays] = top
+        hit = aabb_hit(ray_o[rays], inv_d[rays], flat.lb[node],
+                       flat.rt[node])
+        is_leaf = left[node] == -1
+
+        leaf = hit & is_leaf
+        lr, ln = rays[leaf], node[leaf]
+        if lr.numel():
+            # All of a leaf's triangles at once; the first minimum in range
+            # order that beats best_t wins, as a sequential strict-< scan.
+            slot = tri_start[ln][:, None] + ks
+            in_range = slot <= tri_end[ln][:, None]
+            tri = tri_idx[torch.where(in_range, slot, 0)]
+            t, valid = intersect_one_triangle(
+                ray_o[lr][:, None, :], ray_d[lr][:, None, :], v1[tri],
+                v2[tri], v3[tri])
+            t = torch.where(in_range & valid, t, FLOAT_INF)
+            k = torch.argmin(t, dim=1, keepdim=True)
+            tk = t.gather(1, k)[:, 0]
+            better = tk < best_t[lr]
+            best_t[lr] = torch.where(better, tk, best_t[lr])
+            best_tid[lr] = torch.where(better, tri.gather(1, k)[:, 0].int(),
+                                       best_tid[lr])
+
+        push = hit & ~is_leaf
+        pr, pn = rays[push], node[push]
+        if pr.numel():
+            s = sp[pr]
+            stack[pr, s.clamp(max=top_slot)] = left[pn]
+            stack[pr, (s + 1).clamp(max=top_slot)] = right[pn]
+            sp[pr] = s + 2
+    return best_t, best_tid

@@ -11,8 +11,9 @@ triangle id with a plain ``index_select``.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import materials as mat
@@ -59,15 +60,36 @@ def gather_features(table: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
     return torch.where((tid >= 0)[..., None], rows, 0.0)
 
 
+def park_pose(scene: Scene):
+    """Guaranteed-miss pose for dead rays: beyond the scene AABB's upper
+    corner, pointing +x away from it.  The offset is relative to the
+    extent, so it survives float32 rounding at large coordinates."""
+    v1h, v2h, v3h = scene.host_verts()
+    hi = np.maximum(np.maximum(v1h, v2h), v3h).max(0)
+    lo = np.minimum(np.minimum(v1h, v2h), v3h).min(0)
+    off = max(1.0, 1e-3 * float((hi - lo).max()))
+    return (tuple(float(x) + off for x in hi), (1.0, 0.0, 0.0))
+
+
 def trace_rays(table: torch.Tensor, intersect: IntersectFn,
                ray_o: torch.Tensor, ray_d: torch.Tensor, depth: int,
-               rng_state: torch.Tensor,
-               has_specular: bool = True) -> torch.Tensor:
+               rng_state: torch.Tensor, has_specular: bool = True,
+               park_pose: Optional[tuple] = None) -> torch.Tensor:
     """Trace a ray batch to radiance (..., 3).
 
     table: (T, 12) from :func:`shade_table`; intersect: (o, d) -> (t, tid);
     ray_o, ray_d: (..., 3); rng_state: (...,) uint32 values in int64.
+    park_pose: optional ((3,), (3,)) guaranteed-miss (origin, direction);
+    dead rays are moved there instead of keeping their last pose, so they
+    fail every box test of the cluster kernel (and its optional ray sort
+    packs them together).  The radiance is the same either way.
     """
+    if park_pose is not None:
+        # Filled on the device: a host-to-device copy would synchronise.
+        park_o, park_d = (torch.stack([
+            torch.full(ray_o.shape[:-1], float(x), dtype=torch.float32,
+                       device=ray_o.device) for x in p], dim=-1)
+            for p in park_pose)
     thr = torch.ones_like(ray_o)
     rad = torch.zeros_like(ray_o)
     alive = torch.ones(ray_o.shape[:-1], dtype=torch.bool,
@@ -102,28 +124,35 @@ def trace_rays(table: torch.Tensor, intersect: IntersectFn,
         cos = dot(n, new_d)
         thr = thr * torch.where(contm, 2.0 * albedo * cos[..., None], 1.0)
         hit_p = ray_o + ray_d * t[..., None]
-        ray_o = torch.where(contm, hit_p + n * SHIFT_BIAS, ray_o)
-        ray_d = torch.where(contm, new_d, ray_d)
+        if park_pose is not None:
+            ray_o = torch.where(contm, hit_p + n * SHIFT_BIAS, park_o)
+            ray_d = torch.where(contm, new_d, park_d)
+        else:
+            ray_o = torch.where(contm, hit_p + n * SHIFT_BIAS, ray_o)
+            ray_d = torch.where(contm, new_d, ray_d)
         alive = cont
     return rad
 
 
 def sample_radiance(camera: Camera, scene: Scene, table: torch.Tensor,
                     w: torch.Tensor, h: torch.Tensor, sidx: torch.Tensor,
-                    depth: int, seed: int) -> torch.Tensor:
+                    depth: int, seed: int,
+                    intersect: Optional[IntersectFn] = None,
+                    park_pose: Optional[tuple] = None) -> torch.Tensor:
     """Radiance (S, *w.shape, 3) of the samples ``sidx`` (S,) at pixels
     (w, h): per-(pixel, sample) seed, two jitter draws, camera ray, then
-    :func:`trace_rays` over :func:`intersect_brute`.  This is the whole
-    per-sample path of the brute backend and of the megakernel's plain
-    version."""
+    :func:`trace_rays` over ``intersect`` (default
+    :func:`intersect_brute`).  This is the whole per-sample path of the
+    tile driver and of the megakernel's plain version."""
     sidx = sidx.reshape((-1,) + (1,) * w.dim())
     state = sample_seed(w[None], h[None], camera.height, sidx, seed)
     state, u1 = rand01(state)
     state, u2 = rand01(state)
     ray_o, ray_d = get_rays(camera, w[None], h[None], u1, u2)
 
-    def intersect(o, d):
-        return intersect_brute(o, d, scene.v1, scene.v2, scene.v3)
+    if intersect is None:
+        def intersect(o, d):
+            return intersect_brute(o, d, scene.v1, scene.v2, scene.v3)
 
     return trace_rays(table, intersect, ray_o, ray_d, depth, state,
-                      has_specular=scene.has_specular)
+                      has_specular=scene.has_specular, park_pose=park_pose)

@@ -1,17 +1,26 @@
 """Render drivers (L4), the PyTorch counterpart of ``pathtracer_tpu/render.py``.
 
 Backends:
-  * ``"cuda"`` — the hand-written CUDA megakernel (ops/cuda/trace_kernel.py),
-    one launch per window of about 2^24 ray segments.  On a CPU scene its
-    wrapper takes the kernel's plain version.
-  * ``"brute"`` — plain PyTorch: a host loop over row tiles and sample
-    blocks, each block traced by ``ops/trace.sample_radiance`` (dense
-    Möller–Trumbore against every triangle).
+  * ``"cuda"`` — the hand-written CUDA megakernel (ops/cuda/trace_kernel.py)
+    for scenes of up to 512 triangles, one launch per window of about 2^24
+    ray segments.
+  * ``"beam"`` — the hand-written CUDA coherent-beam kernel for large scenes
+    (ops/cuda/beam_kernel.py): all pixels of a 2048-pixel tile share the
+    bounce uniforms (tile-correlated noise, unbiased per pixel).
+  * ``"cluster"`` — the tile driver over the hand-written CUDA cluster
+    intersection (ops/cuda/cluster_kernel.py), with per-pixel independent
+    sampling; dead rays park at a guaranteed-miss pose.
+  * ``"bvh"`` — the tile driver over per-ray BVH traversal in plain
+    PyTorch (ops/intersect.intersect_bvh).
+  * ``"brute"`` — the tile driver over dense Möller–Trumbore against every
+    triangle (ops/intersect.intersect_brute).
+On a CPU scene each kernel's wrapper takes its plain version.
 
-``"auto"`` picks ``"cuda"`` for a scene on a CUDA device and ``"brute"``
-for one on the CPU.  Scenes of more than ``BRUTE_MAX`` padded triangles
-need the BVH, cluster and beam backends, which come with a later slice of
-the port.
+``"auto"`` on a CUDA scene picks ``"cuda"`` for up to ``BRUTE_MAX`` padded
+triangles, above that ``"beam"``, or ``"cluster"`` with a warning when the
+beam accel cannot represent the scene; it never picks a plain backend for a
+CUDA scene.  On a CPU scene it picks ``"brute"``, or ``"bvh"`` above
+``BRUTE_MAX``.
 
 RNG: one independent hash stream per (pixel, sample), consumed jitter
 first, then the bounces.  Sample windows therefore sum exactly, which the
@@ -21,18 +30,21 @@ checkpointed drivers rely on.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import rng as prng
+from .bvh import FlatBVH, build_bvh
 from .camera import Camera, get_rays
+from .clusters import MAX_BEAM_SC, ClusterSet, build_clusters
 from .image import Film
 from .linalg import dot
 from .ops import trace as trace_ops
-from .ops.cuda import trace_kernel
-from .ops.intersect import intersect_brute
+from .ops.cuda import beam_kernel, cluster_kernel, trace_kernel
+from .ops.intersect import intersect_brute, intersect_bvh
 from .scene import Scene
 from .utils import checkpoint as ckpt
 from .utils.timer import Timer
@@ -41,14 +53,19 @@ BRUTE_MAX = 512                  # max padded triangle count for the dense path
 TARGET_RAYS_PER_PASS = 1 << 21   # rays traced per tile pass
 TARGET_RAYS_PER_CALL = 1 << 24   # rays per schedule entry
 
-BACKENDS = ("brute", "cuda")
+BACKENDS = ("brute", "cuda", "bvh", "cluster", "beam")
 
 
-def _plan(width: int, height: int, samples: int, n_tris: int):
-    """(tile_h, spp_b, blocks_per_call) for the brute driver.  The dense
-    intersector holds O(rays * n_tris) floats, so the per-pass ray budget
-    shrinks for bigger scenes; the last row tile may be ragged."""
-    per_pass = max(1 << 16, TARGET_RAYS_PER_PASS // max(1, n_tris // 32))
+def _plan(width: int, height: int, samples: int, n_tris: int,
+          backend: str = "brute"):
+    """(tile_h, spp_b, blocks_per_call) for the tile driver.  The dense
+    intersector holds O(rays * n_tris) floats, so its per-pass ray budget
+    shrinks for bigger scenes; the cluster backend's memory is O(rays), so
+    it takes the full budget.  The last row tile may be ragged."""
+    if backend == "cluster":
+        per_pass = TARGET_RAYS_PER_PASS
+    else:
+        per_pass = max(1 << 16, TARGET_RAYS_PER_PASS // max(1, n_tris // 32))
     tile_h = max(1, min(height, per_pass // max(1, width)))
     spp_b = max(1, min(samples, per_pass // (tile_h * width)))
     blocks = max(1, min(samples // spp_b,
@@ -57,12 +74,24 @@ def _plan(width: int, height: int, samples: int, n_tris: int):
 
 
 def _auto_backend(camera: Camera, scene: Scene) -> str:
-    if scene.padded_size > BRUTE_MAX:
-        raise NotImplementedError(
-            f"scenes of more than {BRUTE_MAX} padded triangles (got "
-            f"{scene.padded_size}) need the BVH, cluster and beam backends "
-            f"of slice 2 of the PyTorch port")
-    return "cuda" if scene.device.type == "cuda" else "brute"
+    """The backend ``"auto"`` picks; see the module docstring."""
+    on_cuda = scene.device.type == "cuda"
+    if scene.padded_size <= BRUTE_MAX:
+        return "cuda" if on_cuda else "brute"
+    if not on_cuda:
+        return "bvh"
+    try:
+        accel = beam_kernel._accel_for(scene)
+        if accel.num_superclusters <= MAX_BEAM_SC:
+            return "beam"
+        reason = (f"{accel.num_superclusters} superclusters > "
+                  f"{MAX_BEAM_SC}")
+    except ValueError as e:
+        reason = str(e)
+    warnings.warn(
+        f"auto backend: falling back from the beam kernel to the slower "
+        f"'cluster' path: {reason}", stacklevel=3)
+    return "cluster"
 
 
 def _sample_schedule(samples: int, spp_b: int, blocks: int):
@@ -104,7 +133,8 @@ def _resume(checkpoint: Optional[str], meta: dict, film: torch.Tensor,
 
 def _tile_sum(camera: Camera, scene: Scene, table: torch.Tensor, h0: int,
               tile_h: int, sidx0: int, spp_b: int, n_blocks: int,
-              depth: int, seed: int) -> torch.Tensor:
+              depth: int, seed: int, intersect=None,
+              park=None) -> torch.Tensor:
     """Radiance sum of rows [h0, h0 + tile_h) over ``n_blocks`` blocks of
     ``spp_b`` samples from ``sidx0``."""
     width = camera.width
@@ -117,19 +147,54 @@ def _tile_sum(camera: Camera, scene: Scene, table: torch.Tensor, h0: int,
         sidx = torch.arange(sidx0 + k * spp_b, sidx0 + (k + 1) * spp_b,
                             device=dev)
         rad = trace_ops.sample_radiance(camera, scene, table, w, h, sidx,
-                                        depth, seed)
+                                        depth, seed, intersect=intersect,
+                                        park_pose=park)
         acc = acc + rad.sum(dim=0)
     return acc
 
 
+def _flat(fn):
+    """An (o, d) -> (t, tid) intersector over any ray shape, from one over
+    flat (R, 3) batches."""
+    def intersect(o, d):
+        t, tid = fn(o.reshape(-1, 3), d.reshape(-1, 3))
+        return t.reshape(o.shape[:-1]), tid.reshape(o.shape[:-1])
+    return intersect
+
+
+def _tile_intersect(backend: str, scene: Scene, accel):
+    """(intersect, park pose) of the tile driver's backend; ``accel`` is
+    the caller's FlatBVH or ClusterSet, or None."""
+    dev = scene.device
+    if backend == "brute":
+        return None, None
+    if backend == "bvh":
+        bvh = (accel if isinstance(accel, FlatBVH)
+               else build_bvh(scene)).to(dev)
+        fn = _flat(lambda o, d: intersect_bvh(
+            o, d, bvh, scene.v1, scene.v2, scene.v3, bvh.max_leaf,
+            bvh.stack_size()))
+    else:
+        cs = accel if isinstance(accel, ClusterSet) else build_clusters(
+            scene, bvh=accel)
+        cs = cs.to(dev)
+        fn = _flat(lambda o, d: cluster_kernel.intersect_clusters(o, d, cs))
+    # Dead rays park at a guaranteed-miss pose outside the scene box, where
+    # they fail every cluster box test (and the optional ray sort packs
+    # them into blocks of their own).
+    return fn, trace_ops.park_pose(scene)
+
+
 def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
-                *, seed: int = prng.SEED, backend: str = "auto",
+                *, bvh=None, seed: int = prng.SEED, backend: str = "auto",
                 verbose: bool = False, checkpoint: Optional[str] = None,
                 checkpoint_every: int = 1,
                 _abort_after: Optional[int] = None) -> Film:
     """Render the sample-averaged LINEAR film (no gamma) on the scene's
     device.
 
+    bvh: an optional prebuilt ``FlatBVH`` (backends "bvh" and "cluster")
+    or ``ClusterSet`` ("cluster").
     checkpoint: path to a .npz resume file.  If it exists the render resumes
     at the recorded sample and gives a film BIT-IDENTICAL to an
     uninterrupted run; otherwise it is created and updated every
@@ -143,17 +208,22 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
         backend = _auto_backend(camera, scene)
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not in {BACKENDS}")
-    if backend == "cuda":
+    if backend in ("cuda", "beam"):
         if checkpoint is None:
-            return trace_kernel.render_film_cuda(camera, scene, samples,
-                                                 depth, seed=seed)
-        return _render_cuda_checkpointed(
-            camera, scene, samples, depth, seed=seed, checkpoint=checkpoint,
-            checkpoint_every=checkpoint_every, verbose=verbose,
-            _abort_after=_abort_after)
+            if backend == "cuda":
+                return trace_kernel.render_film_cuda(camera, scene, samples,
+                                                     depth, seed=seed)
+            return beam_kernel.render_film_beam(camera, scene, samples,
+                                                depth, seed=seed)
+        return _render_windows_checkpointed(
+            backend, camera, scene, samples, depth, seed=seed,
+            checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+            verbose=verbose, _abort_after=_abort_after)
 
     width, height = camera.res
-    tile_h, spp_b, blocks = _plan(width, height, samples, scene.padded_size)
+    tile_h, spp_b, blocks = _plan(width, height, samples, scene.padded_size,
+                                  backend)
+    intersect, park = _tile_intersect(backend, scene, bvh)
     table = trace_ops.shade_table(scene)
     sched = _sample_schedule(samples, spp_b, blocks)
     meta = {"width": width, "height": height, "samples": samples,
@@ -169,7 +239,8 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
         for h0 in range(0, height, tile_h):
             th = min(tile_h, height - h0)
             film[h0:h0 + th] += _tile_sum(camera, scene, table, h0, th, s0,
-                                          this_spp, nb, depth, seed)
+                                          this_spp, nb, depth, seed,
+                                          intersect, park)
         samples_done = s0 + this_spp * nb
         if verbose:
             print(f"\rRendered: {samples_done}/{samples} spp.", end="",
@@ -189,29 +260,42 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
     return Film((width, height), data=film / samples)
 
 
-def _render_cuda_checkpointed(camera: Camera, scene: Scene, samples: int,
-                              depth: int, *, seed: int, checkpoint: str,
-                              checkpoint_every: int = 1,
-                              verbose: bool = False,
-                              _abort_after: Optional[int] = None) -> Film:
-    """Resumable megakernel render: windows of one launch's samples, the
-    film sum saved between windows."""
+def _render_windows_checkpointed(backend: str, camera: Camera,
+                                 scene: Scene, samples: int, depth: int, *,
+                                 seed: int, checkpoint: str,
+                                 checkpoint_every: int = 1,
+                                 verbose: bool = False,
+                                 _abort_after: Optional[int] = None) -> Film:
+    """Resumable kernel render ("cuda" or "beam"): windows of one launch's
+    samples, the film sum saved between windows.  The meta keys are the
+    JAX package's, so a checkpoint written by one package loads in the
+    other."""
     width, height = camera.res
     block_spp = max(1, min(samples, trace_kernel.RAYS_PER_CALL
                            // (width * height)))
     meta = {"width": width, "height": height, "samples": samples,
-            "depth": depth, "seed": seed, "backend": "cuda",
+            "depth": depth, "seed": seed, "backend": backend,
             "block_spp": block_spp, "scene_sum": _scene_sum(scene)}
     film = torch.zeros((height, width, 3), dtype=torch.float32,
                        device=scene.device)
     film, samples_done = _resume(checkpoint, meta, film, verbose)
 
+    if backend == "beam":
+        accel = beam_kernel._accel_for(scene)
+
+        def window(s0, spp):
+            return beam_kernel.render_sum_beam(
+                camera, scene, s0, spp, depth, seed=seed, accel=accel,
+                spp_per_call=spp)
+    else:
+        def window(s0, spp):
+            return trace_kernel.render_sum_cuda(
+                camera, scene, s0, spp, depth, seed=seed, spp_per_call=spp)
+
     blocks_done = 0
     while samples_done < samples:
         spp = min(block_spp, samples - samples_done)
-        film = film + trace_kernel.render_sum_cuda(
-            camera, scene, samples_done, spp, depth, seed=seed,
-            spp_per_call=spp)
+        film = film + window(samples_done, spp)
         samples_done += spp
         blocks_done += 1
         if blocks_done % checkpoint_every == 0 or samples_done >= samples:
@@ -257,15 +341,15 @@ def render_debug_uv(res) -> Film:
 
 
 def render(camera: Camera, scene: Scene, samples: int, depth: int = 5,
-           filename: Optional[str] = None, *, seed: int = prng.SEED,
-           backend: str = "auto", gamma: float = 2.2,
+           filename: Optional[str] = None, *, bvh=None,
+           seed: int = prng.SEED, backend: str = "auto", gamma: float = 2.2,
            checkpoint: Optional[str] = None, verbose: bool = True) -> Film:
     """Full pipeline: trace, average, gamma-correct, optionally save a PNG.
     Returns the gamma-corrected film and prints wall-clock time and rays/s
     (width * height * samples * depth ray segments over the wall time,
     device work included)."""
     timer = Timer(scene.device)
-    film = render_film(camera, scene, samples, depth, seed=seed,
+    film = render_film(camera, scene, samples, depth, bvh=bvh, seed=seed,
                        backend=backend, checkpoint=checkpoint,
                        verbose=verbose)
     seconds = timer.seconds()

@@ -1,9 +1,10 @@
 """Build of the CUDA sources under ``csrc/`` into one shared library.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into
 ``build/pathtracer_tpu_torch/libpathtracer_tpu_torch-<hash>.so`` at the repo
-root, where the hash covers the source bytes and the flags: an edited
-source never loads a stale library.  The library has a plain C interface
+root, where the hash covers the source and header bytes and the flags: an
+edited source never loads a stale library.  The library has a plain C interface
 and is loaded with ctypes; each wrapper declares the ``argtypes`` of the
 functions it calls.  Nothing is downloaded and nothing prebuilt is kept in
 the repository.  Importing this module needs no ``nvcc``.
@@ -27,8 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pathtracer_tpu_torc
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # operation as the plain PyTorch versions do (see csrc/trace_kernel.cu).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 _LOADED = {}
 
@@ -63,7 +63,7 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -71,25 +71,52 @@ def library_path() -> Path:
 
 
 def build_library() -> Build:
-    """Compile the sources unless a library for their hash exists.  A failed
+    """Compile the sources unless a library for their hash exists: one
+    ``nvcc -c`` per source, run in parallel, then one link.  A failed
     ``nvcc`` raises ``RuntimeError`` with its output."""
     path = library_path()
     if path.exists():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return Build(path, seconds, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = None
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(out)
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd, out)
+        if failed is not None:
+            code, cmd, out = failed
+            raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+        fd, lib = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(lib)
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(lib, path)
+    return Build(path, time.perf_counter() - t0, "".join(log))
+
+
+def error_string(lib: ctypes.CDLL, code: int) -> str:
+    """The CUDA runtime's message for an error code a kernel entry point
+    returned."""
+    lib.pt_error_string.argtypes = [ctypes.c_int]
+    lib.pt_error_string.restype = ctypes.c_char_p
+    return lib.pt_error_string(code).decode()
 
 
 def load_library() -> ctypes.CDLL:

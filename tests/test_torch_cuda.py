@@ -1,4 +1,4 @@
-"""The CUDA megakernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without one.
 This file imports neither JAX nor pathtracer_tpu, so on a machine with a
@@ -11,10 +11,14 @@ with --fmad=false), so they are held to the film bar of the CPU parity
 tests: atol 2e-4 on all but 1% of the pixels (see tests/_torch_parity.py).
 """
 
+import math
+
 import pytest
 import torch
 
 import pathtracer_tpu_torch as tpt
+from pathtracer_tpu_torch.ops.cuda import beam_kernel as tbk
+from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
 
 FILM_ATOL = 2e-4
@@ -106,3 +110,228 @@ def test_rejects_emissive_non_emit(cuda_device):
                           1.0).to(cuda_device)
     with pytest.raises(ValueError, match="non-EMIT"):
         ttk.render_sum_cuda(cam, scene, 0, 1, 2)
+
+
+def _lit_sphere(device, res, n_lat=10, n_lon=20):
+    """sphere_in_box with the ceiling light in view (tests/test_beam.py)."""
+    _, sb = tpt.meshes.sphere_in_box(n_lat, n_lon)
+    cam = tpt.make_camera((250, 250, -420), (0, 0.35, 1), (0, 1, 0), res,
+                          60 * tpt.DEG2RAD, 1.0)
+    return cam.to(device), sb.build().to(device)
+
+
+def _inline70(device, res, specular=False):
+    """70 quads of distinct materials under one light: the beam accel
+    inlines them.  All diffuse, or with ``specular`` every third one
+    specular, so the inline decode also takes the specular branch."""
+    sb = tpt.SceneBuilder()
+    sb.add_quad(((100, 99, 30), (100, 99, 70), (0, 99, 70), (0, 99, 30)),
+                tpt.Emit(1))
+    for i in range(70):
+        x, z = (i % 10) * 10.0, (i // 10) * 12.0 + 5.0
+        m = (tpt.Specular(0.05 * (i % 4), 0.1 + 0.012 * i, 0.5, 0.9)
+             if specular and i % 3 == 0
+             else tpt.Diffuse(0.1 + 0.012 * i, 0.5, 0.9))
+        sb.add_quad(((x, 0, z), (x + 9, 0, z), (x + 9, 0, z + 10),
+                     (x, 0, z + 10)), m)
+    cam = tpt.make_camera((50, 60, -60), (0, 0, 1), (0, 1, 0), res,
+                          70 * tpt.DEG2RAD, 1.0)
+    return cam.to(device), sb.build().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_cluster_kernel_matches_reference(cuda_device, sort_rays):
+    """t bit for bit (same operation order, --fmad=false); tid equal but
+    where two rows tie exactly, which visit order may resolve either way."""
+    _, scene = _lit_sphere("cpu", (8, 8))
+    cs = tpt.build_clusters(scene, max_tris=16).to(cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    o = (torch.rand((4000, 3), generator=gen) * 400 + 50).to(cuda_device)
+    d = torch.randn((4000, 3), generator=gen)
+    d = (d / d.norm(dim=-1, keepdim=True)).to(cuda_device)
+    before = tck.LAUNCHES
+    t, tid = tck.intersect_clusters(o, d, cs, sort_rays=sort_rays)
+    assert tck.LAUNCHES == before + 1
+    t_ref, tid_ref = tck.intersect_clusters_reference(o, d, cs)
+    torch.cuda.synchronize()
+    assert int((tid_ref >= 0).sum()) > 2000
+    assert torch.equal(t, t_ref)
+    assert float((tid != tid_ref).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 5])
+@pytest.mark.parametrize("name", ["sphere", "cornell", "specular",
+                                  "inline70", "inline70_specular"])
+def test_beam_kernel_matches_reference(cuda_device, name, depth):
+    """All four kernel instances: table or inline materials, each with and
+    without the specular branch."""
+    make = {"sphere": lambda r: _lit_sphere(cuda_device, r),
+            "cornell": lambda r: tuple(x.to(cuda_device)
+                                       for x in tpt.cornell_box(res=r)),
+            "specular": lambda r: tuple(
+                x.to(cuda_device) for x in tpt.modified_cornell(0.05, res=r)),
+            "inline70": lambda r: _inline70(cuda_device, r),
+            "inline70_specular": lambda r: _inline70(cuda_device, r, True)}
+    cam, scene = make[name]((64, 64))
+    accel = tbk._accel_for(scene)
+    assert scene.has_specular == name.startswith(("specular", "inline70_s"))
+    assert accel.mats_inline == name.startswith("inline70")
+    before = tbk.LAUNCHES
+    got = tbk.render_sum_beam(cam, scene, 0, 4, depth) / 4
+    assert tbk.LAUNCHES == before + 1
+    want = tbk.render_sum_beam_reference(cam, scene, 0, 4, depth) / 4
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and float(got.sum()) > 0.0
+    bad = ((got - want).abs().amax(dim=-1) > FILM_ATOL).float().mean()
+    assert float(bad) <= MAX_FLIP_SHARE
+
+
+@pytest.mark.cuda
+def test_beam_band_and_window_identities(cuda_device):
+    cam, scene = _lit_sphere(cuda_device, (200, 72))
+    full = tbk.render_tiles_beam(cam, scene, 0, 4, 5)
+    band = tbk.render_tiles_beam(cam, scene, 0, 4, 5, tile0=5, n_tiles=3)
+    assert torch.equal(band, full[:, 5 * tbk.TILE_PX:8 * tbk.TILE_PX])
+    split = (tbk.render_tiles_beam(cam, scene, 0, 1, 5)
+             + tbk.render_tiles_beam(cam, scene, 1, 3, 5))
+    torch.testing.assert_close(split, full, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_large_scene_backends_launch_their_kernels(cuda_device):
+    cam, _ = _lit_sphere(cuda_device, (32, 32))
+    scene = tpt.meshes.mesh_garden(grid=1)[1].build().to(cuda_device)
+    assert scene.padded_size > 512
+    before = tbk.LAUNCHES
+    beam = tpt.render_film(cam, scene, 4, 3)
+    assert tbk.LAUNCHES > before
+    before = tck.LAUNCHES
+    cluster = tpt.render_film(cam, scene, 4, 3, backend="cluster")
+    assert tck.LAUNCHES > before
+    bvh = tpt.render_film(cam, scene, 4, 3, backend="bvh")
+    torch.cuda.synchronize()
+    bad = ((cluster.data - bvh.data).abs().amax(dim=-1) > FILM_ATOL)
+    assert float(bad.float().mean()) <= MAX_FLIP_SHARE
+    assert bool(torch.isfinite(beam.data).all())
+    assert tbk.count_tri_tests(cam, scene, samples=2, depth=3) > 0.0
+
+
+@pytest.mark.cuda
+def test_auto_falls_back_to_cluster_with_a_warning(cuda_device):
+    sb = tpt.meshes.mesh_garden(grid=1)[1]
+    sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
+                    tpt.HostMaterial(tpt.DIFFUSE, color=(1, 1, 1),
+                                     emit=(1, 0, 0)))
+    scene = sb.build().to(cuda_device)
+    cam, _ = _lit_sphere(cuda_device, (16, 16))
+    before = tck.LAUNCHES
+    with pytest.warns(UserWarning, match="cluster"):
+        tpt.render_film(cam, scene, 1, 2)
+    assert tck.LAUNCHES > before
+
+
+@pytest.mark.cuda
+def test_large_scene_wrappers_do_not_synchronise(cuda_device):
+    """The beam and cluster wrappers return while earlier work on the
+    stream still runs (after a first call has built and cached the accel
+    and the raster index)."""
+    import time
+
+    cam, scene = _lit_sphere(cuda_device, (64, 64))
+    cs = tpt.build_clusters(scene).to(cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    o = (torch.rand((4096, 3), generator=gen) * 400 + 50).to(cuda_device)
+    d = torch.randn((4096, 3), generator=gen).to(cuda_device)
+    tbk.render_sum_beam(cam, scene, 0, 1, 1)
+    tck.intersect_clusters(o, d, cs)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of device time at ~2 GHz
+    t0 = time.perf_counter()
+    tbk.render_sum_beam(cam, scene, 0, 4, 5)
+    tck.intersect_clusters(o, d, cs)
+    seconds = time.perf_counter() - t0
+    pending = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert pending and seconds < 0.25
+
+
+class _GuardedTorch:
+    """The torch module, except that ``zeros`` and ``empty`` return views
+    into the middle of larger buffers whose margins hold a sentinel: a
+    kernel that writes past either end of an output changes a margin."""
+
+    MARGIN = 1 << 16   # elements on each side of an output
+
+    def __init__(self):
+        self.buffers = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def _guarded(self, shape, dtype, device, zero):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        n = math.prod(shape)
+        sentinel = -7777.0 if dtype.is_floating_point else -7777
+        buf = torch.full((n + 2 * self.MARGIN,), sentinel, dtype=dtype,
+                         device=device)
+        self.buffers.append((buf, sentinel))
+        out = buf[self.MARGIN:self.MARGIN + n].view(shape)
+        return out.zero_() if zero else out
+
+    def zeros(self, shape, *, dtype=torch.float32, device=None):
+        return self._guarded(shape, dtype, device, True)
+
+    def empty(self, shape, *, dtype=torch.float32, device=None):
+        return self._guarded(shape, dtype, device, False)
+
+    def margins_intact(self):
+        m = self.MARGIN
+        return all(bool((b[:m] == s).all() and (b[-m:] == s).all())
+                   for b, s in self.buffers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trace", "cluster", "beam"])
+def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
+    """Every buffer a wrapper allocates, the kernel's outputs among them,
+    sits between guard margins that must come back untouched; a second
+    launch must give the same bits (a shared-memory race would not).  The
+    CUDA sanitizer tools do not run on every machine with a card; this
+    test does."""
+    guard = _GuardedTorch()
+    if kernel == "trace":
+        cam, scene = _on(cuda_device, "specular", (64, 48))
+        module = ttk
+
+        def run():
+            return ttk.render_sum_cuda(cam, scene, 0, 4, 5, h0=17, band_h=13)
+    elif kernel == "cluster":
+        _, host = _lit_sphere("cpu", (8, 8))
+        cs = tpt.build_clusters(host, max_tris=16).to(cuda_device)
+        gen = torch.Generator().manual_seed(2)
+        o = (torch.rand((1000, 3), generator=gen) * 400 + 50).to(cuda_device)
+        d = torch.randn((1000, 3), generator=gen)
+        d = (d / d.norm(dim=-1, keepdim=True)).to(cuda_device)
+        module = tck
+
+        def run():
+            return torch.cat([x.float() for x in
+                              tck.intersect_clusters(o, d, cs)])
+    else:
+        cam, scene = _inline70(cuda_device, (200, 72), specular=True)
+        counts = guard.zeros(3 * tbk.TILE_PX, dtype=torch.int32,
+                             device=cuda_device)
+        module = tbk
+
+        def run():
+            return tbk.render_tiles_beam(cam, scene, 0, 4, 5, tile0=8,
+                                         n_tiles=3, counts=counts)
+    monkeypatch.setattr(module, "torch", guard)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    assert len(guard.buffers) >= 2 and guard.margins_intact()
+    assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
+    assert float(first.sum()) > 0.0

@@ -53,8 +53,10 @@ def test_auto_backend_rules():
     for i in range(trender.BRUTE_MAX + 1):
         sb.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), tpt.Diffuse(1))
     big = sb.build()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tpt.render_film(cam, big, 1, 1)
+    # Above BRUTE_MAX a CPU scene takes the per-ray BVH traversal.
+    assert trender._auto_backend(cam, big) == "bvh"
+    assert torch.equal(tpt.render_film(cam, big, 1, 1).data,
+                       tpt.render_film(cam, big, 1, 1, backend="bvh").data)
     with pytest.raises(ValueError):
         tpt.render_film(cam, scene, 1, 1, backend="pallas")
 
@@ -132,6 +134,14 @@ def test_package_never_imports_jax():
         "mods = ['pathtracer_tpu_torch', 'pathtracer_tpu_torch.render',\n"
         "        'pathtracer_tpu_torch.convert',\n"
         "        'pathtracer_tpu_torch.ops.cuda.trace_kernel',\n"
+        "        'pathtracer_tpu_torch.ops.cuda.cluster_kernel',\n"
+        "        'pathtracer_tpu_torch.ops.cuda.beam_kernel',\n"
+        "        'pathtracer_tpu_torch.bvh', 'pathtracer_tpu_torch.clusters',\n"
+        "        'pathtracer_tpu_torch.meshes',\n"
+        "        'pathtracer_tpu_torch.obj_loader',\n"
+        "        'pathtracer_tpu_torch.examples.sphere_obj',\n"
+        "        'pathtracer_tpu_torch.examples.modified_cornell',\n"
+        "        'pathtracer_tpu_torch.utils.native',\n"
         "        'pathtracer_tpu_torch.utils.build',\n"
         "        'pathtracer_tpu_torch.utils.checkpoint']\n"
         "for m in mods:\n"
