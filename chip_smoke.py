@@ -7,17 +7,26 @@ Phases, each printed as it runs; any failure raises and the exit code is
 not 0:
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles csrc/*.cu with nvcc for sm_90a and prints the time;
-  3. the megakernel against its plain PyTorch version on the card (corner,
-     Cornell and specular scenes, 64^2, 4 spp, depth 5), a band launch
-     against the same rows of a full launch (bit for bit), a window split
-     over two calls against one call (atol 1e-6), and the emission check;
+  2. build: compiles csrc/*.cu with nvcc for sm_90a, prints the time and
+     the registers, stack and spill of every kernel instance, and, from
+     cuobjdump's SASS, the instructions of each trace-kernel instance's
+     triangle loop per test;
+  3. the megakernel against its plain PyTorch version on the card, both
+     loops ("mt" and "plucker"): bit-identical (max abs 0) on the corner,
+     Cornell and specular scenes at 64^2, 4 spp, depth 5; per loop a band
+     launch against the same rows of a full launch (bit for bit) and a
+     window split over two calls against one call (atol 1e-6); the
+     emission check;
   4. the main path: pathtracer_tpu_torch.render on the 1024^2 Cornell box
-     through backend="auto", which must launch the kernel; the film must be
-     finite, lit, brightest on the light panel, and equal to the brute
-     backend's film on the card at 4 spp;
-  5. timing at 1024^2, 16 spp, depth 5: median over 3 runs of the device
-     time per call of the kernel and of the plain version, CUDA events;
+     through backend="auto", which must launch the kernel's default loop;
+     the film must be finite, lit, brightest on the light panel, and equal
+     to the brute backend's film on the card at 4 spp;
+  5. the trace kernel at 1024^2, 16 spp, depth 5 on cornell_box and
+     modified_cornell(0.05), both loops: median over 3 runs of the device
+     time per call of the kernel and of its plain version (CUDA events),
+     bit-identical films, the live ray segments, the bound and the share of
+     it reached, the issue-slot figure; then one render() each of the 10k
+     spp reference configurations (bars 112 s and 230 s);
   6. the cluster kernel against its plain version on sphere_in_box(50, 100)
      (9,812 triangles): 65,536 camera rays of the 512^2 film and 65,536
      random rays, t within rtol 1e-6, tid equal except at near-ties, the
@@ -37,17 +46,20 @@ not 0:
      one backend="cluster" render;
   9. timing: the beam and cluster kernels against their plain versions, the
      cluster kernel on the garden's clusters (a slice of its 2^20 rays held
-     against the plain version), and the ray segments/s of the beam and
-     cluster renders at 512^2, depth 5, and the cluster render without the
-     ray sort (the default) and with it, off/on/on/off;
-then one JSON line on the kernels and, last, the device line.  The renders
-and a JSON record of the run go to build/chip_smoke/ (git-ignored).
+     against the plain version), each with its bound from the boxes and
+     rows these rays need (count_work), and the ray segments/s of the beam
+     and cluster renders at 512^2, depth 5, and the cluster render without
+     the ray sort (the default) and with it, off/on/on/off;
+then one JSON line on the kernels (each with its launches on its main
+path, its error against its plain version, its time, the plain version's,
+its bound: the operations these inputs need over the card's published
+fp32 rate) and, last, the device line.  The renders and a JSON record of
+the run go to build/chip_smoke/ (git-ignored).
 """
 
 import functools
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -66,9 +78,14 @@ MAIN_RES = (1024, 1024)
 MAIN_SPP = 256
 DEPTH = 5
 CHECK_SPP = 4            # main-path film against the brute backend
-TIME_SPP = 16            # one launch of 2^24 ray segments at 1024^2
-TIME_RUNS = 3
+TIME_SPP = 16            # one launch of 2^24 paths at 1024^2
 KERNEL_CALLS = 16        # back-to-back kernel calls per timed run
+REF_SPP = 10000          # the reference configurations' samples
+REF_BARS = {"refconfig": 112.0, "specular1024": 230.0}   # BASELINE.md, s
+# Published fp32 rate of one H100 SXM outside the tensor cores, at the
+# 700 W power limit (NVIDIA's data sheet); every bound below divides an
+# operation count by it.
+FP32_OPS_PER_S = 67e12
 
 # Large scenes (phases 6-9).
 CLUSTER_RAYS = 1 << 16   # camera rays, and as many random rays, in phase 6
@@ -110,26 +127,79 @@ def film_diff(got, want):
             float((diff.amax(dim=-1) > FILM_ATOL).float().mean()))
 
 
-def timed_ms(fn, calls, runs=TIME_RUNS):
-    """Median device time in ms per call of ``fn``, after one warm-up call.
-    Each run is ``calls`` back-to-back calls between two CUDA events, so
-    the host's preparation of a call overlaps the device work of the one
-    before, as in a render; a single call would also count the idle device
-    while the host prepares it."""
-    import torch
-    fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times), times
+def bound_ms(ops):
+    """The least time for ``ops`` fp32 operations at FP32_OPS_PER_S."""
+    return ops / FP32_OPS_PER_S * 1e3
+
+
+def ptxas_table(log):
+    """{mangled kernel name: (registers, stack bytes, spill store bytes)}
+    from nvcc's -Xptxas -v output."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)),
+                                                   int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def trace_instance(name):
+    """'plucker/specular' for a mangled trace_kernel<kHasSpecular, kLoop>
+    name, else None."""
+    import re
+    m = re.search(r"trace_kernelILb([01])ELi([01])E", name)
+    if not m:
+        return None
+    return (("mt", "plucker")[int(m.group(2))] + "/"
+            + ("diffuse", "specular")[int(m.group(1))])
+
+
+def sass_triangle_loops(text):
+    """{instance: {...}} for each trace-kernel instance in cuobjdump's SASS
+    ``text``: the innermost loop that holds row loads (LDS.128) and
+    reciprocals (MUFU.RCP) is the triangle loop; its instructions over the
+    rows it tests per trip, and the MUFU, CALL and local-memory
+    instructions of the whole function."""
+    import re
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        inst = trace_instance(chunk.split("\n", 1)[0])
+        if inst is None:
+            continue
+        code = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+        index = {a: i for i, (a, _) in enumerate(code)}
+        loops = []
+        for i, (a, op) in enumerate(code):
+            m = re.search(r"\bBRA 0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < a:
+                body = [o for _, o in code[index[int(m.group(1), 16)]:i + 1]]
+                loads = sum("LDS.128" in o for o in body)
+                if loads and any("MUFU.RCP" in o for o in body):
+                    loops.append((len(body), loads, body))
+        n, loads, body = min(loops)
+        per_row = 3 if inst.startswith("mt") else 5
+        rows = loads // per_row
+        out[inst] = {
+            "loop_instructions": n, "rows_per_trip": rows,
+            "instructions_per_test": n / rows,
+            "loop_calls": sum("CALL" in o for o in body),
+            "function_instructions": len(code),
+            "local_memory": sum(bool(re.search(r"\b(STL|LDL)", o))
+                                for _, o in code),
+            "mufu": sum("MUFU" in o for _, o in code)}
+    return out
 
 
 def lit_sphere_camera(pt, res):
@@ -249,7 +319,7 @@ def phase_cluster(pt, dev, record):
     w = torch.from_numpy(gen.integers(0, LARGE_RES[0], n)).to(dev)
     h = torch.from_numpy(gen.integers(0, LARGE_RES[1], n)).to(dev)
     u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
-    cam_o, cam_d = get_rays(cam.to(dev), w, h, u[0], u[1])
+    cam_o, cam_d = get_rays(cam, w, h, u[0], u[1])
     rnd_o = torch.from_numpy(gen.uniform(1, 499, (n, 3)).astype(np.float32))
     rnd_d = gen.normal(size=(n, 3)).astype(np.float32)
     rnd_d /= np.linalg.norm(rnd_d, axis=-1, keepdims=True)
@@ -261,9 +331,9 @@ def phase_cluster(pt, dev, record):
         err, out[name] = hold_clusters(name, o, d, cs_d, n)
         max_err = max(max_err, err)
 
-    cam64, scene_d = lit_sphere_camera(pt, (64, 64)).to(dev), scene.to(dev)
-    f_cl = pt.render_film(cam64, scene_d, 2, 3, bvh=cs, backend="cluster")
-    f_bvh = pt.render_film(cam64, scene_d, 2, 3, bvh=bvh, backend="bvh")
+    cam64 = lit_sphere_camera(pt, (64, 64))
+    f_cl = pt.render_film(cam64, scene, 2, 3, bvh=cs, backend="cluster")
+    f_bvh = pt.render_film(cam64, scene, 2, 3, bvh=bvh, backend="bvh")
     torch.cuda.synchronize()
     film_max, share = film_diff(f_cl.data, f_bvh.data)
     check(float(f_cl.data.max()) > 0.0, "cluster film is black")
@@ -306,7 +376,6 @@ def phase_beam(pt, dev, record):
         for res in ((64, 64), (72, 200) if name in ("cornell", "specular")
                     else (200, 72)):
             cam, scene = make(res)
-            cam, scene = cam.to(dev), scene.to(dev)
             accel = bk._accel_for(scene)
             check(scene.has_specular == (name in ("specular",
                                                   "inline70spec"))
@@ -332,7 +401,6 @@ def phase_beam(pt, dev, record):
                             "bit_equal": equal}
 
     cam, scene = scenes["sphere9812"]((200, 72))
-    cam, scene = cam.to(dev), scene.to(dev)
     full = bk.render_tiles_beam(cam, scene, 0, 4, DEPTH)
     band = bk.render_tiles_beam(cam, scene, 0, 4, DEPTH, tile0=5, n_tiles=3)
     split = (bk.render_tiles_beam(cam, scene, 0, 1, DEPTH)
@@ -350,7 +418,7 @@ def phase_beam(pt, dev, record):
                     pt.HostMaterial(pt.DIFFUSE, color=(1, 1, 1),
                                     emit=(1, 0, 0)))
     try:
-        bk.render_sum_beam(cam, sb.build().to(dev), 0, 1, 1)
+        bk.render_sum_beam(cam, sb.build(), 0, 1, 1)
     except ValueError as e:
         print(f"emission check raised: {e}", flush=True)
     else:
@@ -424,9 +492,8 @@ def phase_large(pt, dev, record):
         "garden105708": (pt.meshes.mesh_garden(), GARDEN_SPP,
                          "docs/garden105708_beam_2048spp.png"),
     }
-    for name, ((cam, sb), spp, golden) in scenes.items():
-        scene = sb.build()
-        cam_d, scene_d = cam.to(dev), scene.to(dev)
+    for name, ((cam_d, sb), spp, golden) in scenes.items():
+        scene = scene_d = sb.build()
         t0 = time.perf_counter()
         pt.build_bvh(scene)
         bvh_s = time.perf_counter() - t0
@@ -478,8 +545,8 @@ def phase_large(pt, dev, record):
         band_err = max(band_err, err)
         out[name] = entry
 
-    cam, sb = pt.meshes.sphere_in_box(50, 100)
-    cam_d, scene_d = cam.to(dev), sb.build().to(dev)
+    cam_d, sb = pt.meshes.sphere_in_box(50, 100)
+    scene_d = sb.build()
     ttk.LAUNCHES = ck.LAUNCHES = bk.LAUNCHES = 0
     t0 = time.perf_counter()
     film = pt.render(cam_d, scene_d, samples=CLUSTER_SPP, depth=DEPTH,
@@ -500,7 +567,8 @@ def phase_large(pt, dev, record):
 
 
 def phase_timing(pt, dev, card, record):
-    """Phase 9; returns {kernel: (ms, plain_ms)} and, under "cluster_err",
+    """Phase 9; returns {kernel: (ms, plain_ms, bound_ms)} and, under
+    "cluster_err",
     the largest |t| difference of the garden's and the sphere's held
     rays."""
     import numpy as np
@@ -508,20 +576,20 @@ def phase_timing(pt, dev, card, record):
     from pathtracer_tpu_torch.camera import get_rays
     from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
     from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.utils.timer import device_ms
 
     print("== 9 timing", flush=True)
     out = {}
     cluster_err = 0.0
-    cam, sb = pt.meshes.sphere_in_box(50, 100)
-    scene = sb.build()
-    cam_d, scene_d = cam.to(dev), scene.to(dev)
+    cam_d, sb = pt.meshes.sphere_in_box(50, 100)
+    scene = scene_d = sb.build()
 
     cam_t = with_res(cam_d, TIME_BEAM_RES)
     res = {}
-    plain_ms, plain_all = timed_ms(lambda: res.__setitem__(
+    plain_ms, plain_all = device_ms(lambda: res.__setitem__(
         "p", bk.render_sum_beam_reference(cam_t, scene_d, 0, TIME_BEAM_SPP,
                                           DEPTH)), calls=1)
-    beam_ms, beam_all = timed_ms(lambda: res.__setitem__(
+    beam_ms, beam_all = device_ms(lambda: res.__setitem__(
         "k", bk.render_sum_beam(cam_t, scene_d, 0, TIME_BEAM_SPP, DEPTH)),
         calls=KERNEL_CALLS)
     diff, share = film_diff(res["k"], res["p"])
@@ -530,12 +598,20 @@ def phase_timing(pt, dev, card, record):
           f"version {plain_ms:.3f} ms (runs {plain_all}) per call at "
           f"{TIME_BEAM_RES[0]}x{TIME_BEAM_RES[1]}, {TIME_BEAM_SPP} spp, "
           f"depth {DEPTH}; max abs diff {diff:.3e}", flush=True)
+    work = bk.count_work(cam_t, scene_d, 0, TIME_BEAM_SPP, DEPTH)
+    beam_bound = bound_ms(work["ops"])
+    print(f"beam bound: {work['live_segments']} live segments test "
+          f"{work['sc_box_tests']} supercluster and "
+          f"{work['cluster_box_tests']} cluster boxes and {work['rows']} "
+          f"rows ({work['rows'] / work['live_segments']:.2f} per segment): "
+          f"{work['ops']:.4e} operations, {beam_bound:.4f} ms, "
+          f"{beam_bound / beam_ms:.2%} of it reached", flush=True)
     out["beam"] = {"ms": beam_ms, "plain_ms": plain_ms, "runs": beam_all,
-                   "plain_runs": plain_all}
+                   "plain_runs": plain_all, "work": work,
+                   "bound_ms": beam_bound}
 
-    gcam, gsb = pt.meshes.mesh_garden()
-    gscene = gsb.build()
-    gcam_d, gscene_d = gcam.to(dev), gscene.to(dev)
+    gcam_d, gsb = pt.meshes.mesh_garden()
+    gscene = gscene_d = gsb.build()
     gen = np.random.default_rng(9)
     n = TIME_CLUSTER_RAYS
     out["cluster"] = {}
@@ -550,25 +626,30 @@ def phase_timing(pt, dev, card, record):
         err, held = hold_clusters(f"{name} ({cs.num_clusters} clusters) "
                                   f"camera", o, d, cs, HELD_CLUSTER_RAYS)
         cluster_err = max(cluster_err, err)
+        work = ck.count_work(o, d, cs, ck.intersect_clusters(o, d, cs)[0])
+        bound = bound_ms(work["ops"])
         fns = [("unsorted", lambda: ck.intersect_clusters(o, d, cs)),
                ("sorted", lambda: ck.intersect_clusters(o, d, cs,
                                                         sort_rays=True))]
         if name == "sphere9812":    # the garden's would take about 30 s
             fns.append(("plain",
                         lambda: ck.intersect_clusters_reference(o, d, cs)))
-        cl = {key: timed_ms(fn, calls=1 if key == "plain" else 4)
+        cl = {key: device_ms(fn, calls=1 if key == "plain" else 4)
               for key, fn in fns}
         plain = (f"; plain version {cl['plain'][0]:.3f} ms"
                  if "plain" in cl else "")
         print(f"{card}: cluster kernel per 2^20 camera rays of {name} "
               f"({cs.num_clusters} clusters): {cl['unsorted'][0]:.3f} ms "
               f"without the ray sort (the default), {cl['sorted'][0]:.3f} ms "
-              f"with it{plain}", flush=True)
+              f"with it{plain}; bound: {work['box_tests']} box tests and "
+              f"{work['rows']} rows, {work['ops']:.4e} operations, "
+              f"{bound:.4f} ms, {bound / cl['unsorted'][0]:.2%} of it "
+              f"reached", flush=True)
         out["cluster"][name] = {k: {"ms": v[0], "runs": v[1]}
                                 for k, v in cl.items()}
-        out["cluster"][name]["held"] = held
+        out["cluster"][name].update(held=held, work=work, bound_ms=bound)
         if name == "sphere9812":
-            times = (cl["unsorted"][0], cl["plain"][0])
+            times = (cl["unsorted"][0], cl["plain"][0], bound)
 
     renders = {"sphere9812": (cam_d, scene_d, scene),
                "garden105708": (gcam_d, gscene_d, gscene)}
@@ -580,7 +661,7 @@ def phase_timing(pt, dev, card, record):
         segs = {"beam": LARGE_RES[0] * LARGE_RES[1] * beam_spp * DEPTH,
                 "cluster": LARGE_RES[0] * LARGE_RES[1] * cluster_spp * DEPTH}
         for backend, spp in (("beam", beam_spp), ("cluster", cluster_spp)):
-            ms, runs = timed_ms(lambda: pt.render_film(
+            ms, runs = device_ms(lambda: pt.render_film(
                 c, s, spp, DEPTH, backend=backend), calls=1)
             rate = segs[backend] / ms * 1e3
             print(f"{card}: {name} {backend} 512^2, {spp} spp, depth "
@@ -597,7 +678,7 @@ def phase_timing(pt, dev, card, record):
             ck.intersect_clusters = (functools.partial(
                 unsorted, sort_rays=True) if sort else unsorted)
             try:
-                ab.append(timed_ms(lambda: pt.render_film(
+                ab.append(device_ms(lambda: pt.render_film(
                     c, s, cluster_spp, DEPTH, backend="cluster", bvh=cs),
                     calls=1)[0])
             finally:
@@ -611,105 +692,122 @@ def phase_timing(pt, dev, card, record):
           f"segment (beam kernel, per ray)", flush=True)
     out["sphere9812_tri_tests_per_segment"] = tests
     record["large_timing"] = out
-    return {"beam_kernel": (beam_ms, plain_ms), "cluster_kernel": times,
-            "cluster_err": cluster_err}
+    return {"beam_kernel": (beam_ms, plain_ms, beam_bound),
+            "cluster_kernel": times, "cluster_err": cluster_err}
 
 
-def main():
-    import torch
-
-    print("== 1 device", flush=True)
-    check(torch.cuda.is_available(),
-          "torch.cuda.is_available() is false; this script needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    card = smi.strip().splitlines()[0]
-    print(card, flush=True)
-    dev = torch.device("cuda", 0)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    sys.path.insert(0, REPO)
-    import pathtracer_tpu_torch as pt
-    from pathtracer_tpu_torch.camera import get_rays
-    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
-    from pathtracer_tpu_torch.ops.intersect import intersect_brute
+def phase_build(record):
+    """Phase 2; returns {trace instance: (registers, stack, spill)} and the
+    SASS figures of the trace kernel's triangle loops."""
     from pathtracer_tpu_torch.utils import build
-
-    record = {"card": card}
 
     print("== 2 build", flush=True)
     built = build.build_library()
     build.load_library()
     print(f"built {os.path.relpath(built.path, REPO)} in "
           f"{built.seconds:.2f} s", flush=True)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip(), flush=True)
-    record["build_s"] = built.seconds
+    table = ptxas_table(built.log)
+    check(len(table) >= 10, f"ptxas reported {len(table)} kernel instances")
+    for name, (regs, stack, spill) in sorted(table.items()):
+        label = trace_instance(name) or name
+        print(f"  {label}: {regs} registers, {stack} bytes stack frame, "
+              f"{spill} bytes spill stores", flush=True)
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = sass_triangle_loops(subprocess.run(
+        [cuobjdump, "-sass", str(built.path)], capture_output=True,
+        text=True, check=True, timeout=120).stdout)
+    check(len(sass) == 4, f"SASS of {len(sass)} trace kernel instances")
+    for inst, fig in sorted(sass.items()):
+        print(f"  {inst} SASS: triangle loop {fig['loop_instructions']} "
+              f"instructions for {fig['rows_per_trip']} rows, "
+              f"{fig['instructions_per_test']:.2f} per test, "
+              f"{fig['loop_calls']} calls in it; the function: "
+              f"{fig['mufu']} MUFU, {fig['local_memory']} local-memory "
+              f"instructions", flush=True)
+    regs = {trace_instance(k): v for k, v in table.items()
+            if trace_instance(k)}
+    record["build"] = {"seconds": built.seconds,
+                       "ptxas": {trace_instance(k) or k: v
+                                 for k, v in table.items()},
+                       "sass": sass}
+    return regs, sass
 
-    print("== 3 kernel against its plain version (64^2, 4 spp, depth 5)",
-          flush=True)
+
+def phase_parity(pt, dev, record):
+    """Phase 3: both loops bit-identical to their plain versions."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    print("== 3 kernel against its plain version (64^2, 4 spp, depth 5), "
+          "both loops", flush=True)
     record["parity"] = {}
     scenes = {"corner": lambda: pt.corner_scene(res=(64, 64)),
               "cornell": lambda: pt.cornell_box(res=(64, 64)),
               "specular": lambda: pt.modified_cornell(0.3, res=(64, 64))}
     for name, make in scenes.items():
         cam, scene = make()
-        cam, scene = cam.to(dev), scene.to(dev)
-        got = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH) / 4
-        want = ttk.render_sum_reference(cam, scene, 0, 4, DEPTH) / 4
-        torch.cuda.synchronize()
-        max_abs, share = film_diff(got, want)
-        equal = float((got == want).float().mean())
-        print(f"{name}: max abs diff {max_abs:.3e}, pixels beyond "
-              f"{FILM_ATOL}: {share:.4%}, bit-equal values {equal:.4%}, "
-              f"mean {float(got.mean()):.5f}", flush=True)
-        check(float(got.mean()) > 0.0, f"{name}: black film")
-        check(share <= MAX_FLIP_SHARE,
-              f"{name}: {share:.4%} of pixels beyond {FILM_ATOL}")
-        record["parity"][name] = {"max_abs": max_abs, "share": share,
-                                  "bit_equal": equal}
+        for loop in ttk.LOOPS:
+            got = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH, loop=loop)
+            want = ttk.render_sum_reference(cam, scene, 0, 4, DEPTH,
+                                            loop=loop)
+            torch.cuda.synchronize()
+            max_abs, _ = film_diff(got / 4, want / 4)
+            print(f"{name} {loop}: max abs diff {max_abs:.3e}, mean "
+                  f"{float(got.mean()) / 4:.5f}", flush=True)
+            check(float(got.mean()) > 0.0, f"{name} {loop}: black film")
+            check(torch.equal(got, want),
+                  f"{name} {loop}: not bit-identical to the plain version")
+            record["parity"][f"{name} {loop}"] = {"max_abs": max_abs}
 
     cam, scene = pt.modified_cornell(0.3, res=(64, 48))
-    cam, scene = cam.to(dev), scene.to(dev)
-    full = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH)
-    band = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH, h0=17, band_h=13)
-    split = (ttk.render_sum_cuda(cam, scene, 0, 1, DEPTH)
-             + ttk.render_sum_cuda(cam, scene, 1, 3, DEPTH))
-    torch.cuda.synchronize()
-    check(torch.equal(band, full[17:30]),
-          "band launch differs from the same rows of the full launch")
-    window = float((split - full).abs().max())
-    check(window <= WINDOW_ATOL, f"two windows differ from one by {window}")
-    print(f"band rows [17, 30) bit-identical; window split max diff "
-          f"{window:.3e}", flush=True)
+    for loop in ttk.LOOPS:
+        full = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH, loop=loop)
+        band = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH, h0=17, band_h=13,
+                                   loop=loop)
+        split = (ttk.render_sum_cuda(cam, scene, 0, 1, DEPTH, loop=loop)
+                 + ttk.render_sum_cuda(cam, scene, 1, 3, DEPTH, loop=loop))
+        torch.cuda.synchronize()
+        check(torch.equal(band, full[17:30]),
+              f"{loop}: band launch differs from the same rows of the full "
+              f"launch")
+        window = float((split - full).abs().max())
+        check(window <= WINDOW_ATOL,
+              f"{loop}: two windows differ from one by {window}")
+        print(f"{loop}: band rows [17, 30) bit-identical; window split max "
+              f"diff {window:.3e}", flush=True)
     sb = pt.SceneBuilder()
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                     pt.HostMaterial(pt.DIFFUSE, color=(1, 1, 1),
                                     emit=(1, 0, 0)))
     try:
-        ttk.render_sum_cuda(cam, sb.build().to(dev), 0, 1, 1)
+        ttk.render_sum_cuda(cam, sb.build(), 0, 1, 1)
     except ValueError as e:
         print(f"emission check raised: {e}", flush=True)
     else:
         raise RuntimeError("chip_smoke: emissive non-EMIT scene accepted")
 
+
+def phase_main(pt, dev, record):
+    """Phase 4; returns the default loop's launches on the main path."""
+    import torch
+    from pathtracer_tpu_torch.camera import get_rays
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+    from pathtracer_tpu_torch.ops.intersect import intersect_brute
+
     print(f"== 4 main path: render(cornell_box {MAIN_RES[0]}x{MAIN_RES[1]}, "
           f"{MAIN_SPP} spp, depth {DEPTH}, backend='auto')", flush=True)
     cam, scene = pt.cornell_box(res=MAIN_RES)
-    cam, scene = cam.to(dev), scene.to(dev)
-    os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, "chip_smoke_cornell1024.png")
     ttk.LAUNCHES = 0
+    ttk.LOOP_LAUNCHES.update({loop: 0 for loop in ttk.LOOPS})
     t0 = time.perf_counter()
     film = pt.render(cam, scene, samples=MAIN_SPP, depth=DEPTH, filename=png)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = ttk.LAUNCHES
-    check(launches > 0, "the main path launched no kernel")
+    launches = ttk.LOOP_LAUNCHES[ttk.DEFAULT_LOOP]
+    check(launches > 0 and launches == ttk.LAUNCHES,
+          f"the main path launched {dict(ttk.LOOP_LAUNCHES)}, not the "
+          f"default loop {ttk.DEFAULT_LOOP!r}")
     img = film.data
     check(tuple(img.shape) == (MAIN_RES[1], MAIN_RES[0], 3),
           f"film shape {tuple(img.shape)}")
@@ -730,9 +828,10 @@ def main():
     tid = int(tid[0])
     check(tid >= 0 and int(scene.mat_type[tid]) == pt.EMIT,
           f"brightest pixel ({bw}, {bh}) sees triangle {tid}, not the light")
-    print(f"{launches} launches, {main_s:.3f} s wall for the render call, "
-          f"gamma-space mean {mean:.4f}, brightest pixel "
-          f"({bw}, {bh}) sees the light (triangle {tid})", flush=True)
+    print(f"{launches} launches of the {ttk.DEFAULT_LOOP!r} loop, "
+          f"{main_s:.3f} s wall for the render call, gamma-space mean "
+          f"{mean:.4f}, brightest pixel ({bw}, {bh}) sees the light "
+          f"(triangle {tid})", flush=True)
     kern = pt.render_film(cam, scene, CHECK_SPP, DEPTH, backend="cuda").data
     brute = pt.render_film(cam, scene, CHECK_SPP, DEPTH, backend="brute").data
     torch.cuda.synchronize()
@@ -742,35 +841,137 @@ def main():
           flush=True)
     check(main_share <= MAX_FLIP_SHARE,
           f"main path: {main_share:.4%} of pixels beyond {FILM_ATOL}")
-    record["main"] = {"launches": launches, "seconds": main_s,
-                      "gamma_mean": mean, "brightest": [bw, bh],
-                      "brute_max_abs": main_err, "brute_share": main_share}
+    record["main"] = {"launches": launches, "loop": ttk.DEFAULT_LOOP,
+                      "seconds": main_s, "gamma_mean": mean,
+                      "brightest": [bw, bh], "brute_max_abs": main_err,
+                      "brute_share": main_share}
+    return launches
 
-    print(f"== 5 timing at {MAIN_RES[0]}x{MAIN_RES[1]}, {TIME_SPP} spp, "
-          f"depth {DEPTH}", flush=True)
-    segments = MAIN_RES[0] * MAIN_RES[1] * TIME_SPP * DEPTH
-    out = {}
 
-    def kernel():
-        out["k"] = ttk.render_sum_cuda(cam, scene, 0, TIME_SPP, DEPTH)
+def issue_rate():
+    """Thread-instructions the card can issue per second: SMs x 4
+    schedulers x 32 lanes x the maximum SM clock (nvidia-smi)."""
+    import torch
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 4 * 32 * float(mhz) * 1e6, sms, float(mhz)
 
-    def plain():
-        out["p"] = ttk.render_sum_reference(cam, scene, 0, TIME_SPP, DEPTH)
 
-    plain_ms, plain_all = timed_ms(plain, calls=1)       # ~1 s per call
-    ms, kernel_all = timed_ms(kernel, calls=KERNEL_CALLS)
-    max_abs, share = film_diff(out["k"] / TIME_SPP, out["p"] / TIME_SPP)
-    check(share <= MAX_FLIP_SHARE,
-          f"timing shape: {share:.4%} of pixels beyond {FILM_ATOL}")
-    print(f"{card}: kernel {ms:.3f} ms (runs {kernel_all}), "
-          f"{segments / ms * 1e3:.4e} ray segments/s; plain version "
-          f"{plain_ms:.3f} ms (runs {plain_all}), "
-          f"{segments / plain_ms * 1e3:.4e} ray segments/s; "
-          f"max abs diff {max_abs:.3e}", flush=True)
-    record["timing"] = {"spp": TIME_SPP, "kernel_ms": ms,
-                        "kernel_runs_ms": kernel_all, "plain_ms": plain_ms,
-                        "plain_runs_ms": plain_all, "max_abs": max_abs,
-                        "share": share, "segments": segments}
+def phase_trace_timing(pt, card, regs, sass, record):
+    """Phase 5; returns {"ms", "plain_ms", "bound_ms", "max_abs"} of the
+    default loop on cornell1024, the main path's launch shape."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+    from pathtracer_tpu_torch.ops import intersect as tisect
+    from pathtracer_tpu_torch.utils.timer import device_ms
+
+    print(f"== 5 trace kernel at {MAIN_RES[0]}x{MAIN_RES[1]}, {TIME_SPP} "
+          f"spp, depth {DEPTH}, both loops", flush=True)
+    rate, sms, mhz = issue_rate()
+    print(f"issue rate {rate:.4e} thread-instructions/s ({sms} SMs x 4 x 32 "
+          f"x {mhz:.0f} MHz)", flush=True)
+    scenes = {"cornell1024": lambda: pt.cornell_box(res=MAIN_RES),
+              "specular1024": lambda: pt.modified_cornell(0.05,
+                                                          res=MAIN_RES)}
+    out, main = {}, None
+    for name, make in scenes.items():
+        cam, scene = make()
+        paths = MAIN_RES[0] * MAIN_RES[1] * TIME_SPP
+        live = ttk.count_live_segments(cam, scene, 0, TIME_SPP, DEPTH)
+        ops = ttk.count_ops(scene, live, paths)
+        bound = bound_ms(ops)
+        print(f"{name}: {scene.num_tris} triangles, {live} live ray "
+              f"segments of {paths * DEPTH} nominal ({live / paths:.4f} per "
+              f"path, {ttk.DEFAULT_LOOP!r} loop), {ops:.4e} operations "
+              f"(Plucker: {tisect.PLUCKER_PRIMARY_OPS} per test at bounce 0, "
+              f"{tisect.PLUCKER_OPS} later, {tisect.MOMENT_OPS} a segment "
+              f"for o x d), bound {bound:.4f} ms at {FP32_OPS_PER_S:.3g} "
+              f"op/s", flush=True)
+        out[name] = {"triangles": scene.num_tris, "live_segments": live,
+                     "paths": paths, "ops": ops, "bound_ms": bound}
+        for loop in ttk.LOOPS:
+            res = {}
+            plain_ms, plain_all = device_ms(lambda: res.__setitem__(
+                "p", ttk.render_sum_reference(cam, scene, 0, TIME_SPP, DEPTH,
+                                              loop=loop)), calls=1)
+            ms, runs = device_ms(lambda: res.__setitem__(
+                "k", ttk.render_sum_cuda(cam, scene, 0, TIME_SPP, DEPTH,
+                                         loop=loop)), calls=KERNEL_CALLS)
+            max_abs, _ = film_diff(res["k"] / TIME_SPP, res["p"] / TIME_SPP)
+            check(torch.equal(res["k"], res["p"]),
+                  f"{name} {loop}: not bit-identical at the timing shape")
+            inst = f"{loop}/{'specular' if scene.has_specular else 'diffuse'}"
+            per_test = sass[inst]["instructions_per_test"]
+            issue_ms = live * scene.num_tris * per_test / rate * 1e3
+            r, stack, spill = regs[inst]
+            print(f"{card}: {name} {loop}: kernel {ms:.4f} ms (runs "
+                  f"{runs}), plain version {plain_ms:.3f} ms (runs "
+                  f"{plain_all}), bit-identical; {bound / ms:.2%} of the "
+                  f"bound; the triangle loop's issue slots alone "
+                  f"{issue_ms:.4f} ms ({per_test:.2f} instructions per "
+                  f"test); {r} registers, {stack} bytes stack, {spill} "
+                  f"bytes spill", flush=True)
+            out[name][loop] = {"ms": ms, "runs": runs, "plain_ms": plain_ms,
+                               "plain_runs": plain_all, "max_abs": max_abs,
+                               "share_of_bound": bound / ms,
+                               "issue_ms": issue_ms,
+                               "instructions_per_test": per_test,
+                               "registers": r, "stack": stack,
+                               "spill": spill}
+            if name == "cornell1024" and loop == ttk.DEFAULT_LOOP:
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "max_abs": max_abs}
+
+    for name, make, png in (
+            ("refconfig", lambda: pt.cornell_box(res=MAIN_RES),
+             "chip_smoke_refconfig.png"),
+            ("specular1024", lambda: pt.modified_cornell(0.05, res=MAIN_RES),
+             "chip_smoke_specular1024.png")):
+        cam, scene = make()
+        t0 = time.perf_counter()
+        film = pt.render(cam, scene, samples=REF_SPP, depth=DEPTH,
+                         filename=os.path.join(OUT_DIR, png), verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(bool(torch.isfinite(film.data).all())
+              and float(film.data.mean()) > 0.01, f"{name}: bad film")
+        print(f"{card}: {name} render(): {REF_SPP} spp, depth {DEPTH}, "
+              f"{seconds:.3f} s wall (the reference: {REF_BARS[name]:.0f} s)",
+              flush=True)
+        out[f"{name} render"] = {"spp": REF_SPP, "seconds": seconds,
+                                 "reference_s": REF_BARS[name]}
+    record["trace_timing"] = out
+    return main
+
+
+def main():
+    import torch
+
+    print("== 1 device", flush=True)
+    check(torch.cuda.is_available(),
+          "torch.cuda.is_available() is false; this script needs a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    card = smi.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    sys.path.insert(0, REPO)
+    import pathtracer_tpu_torch as pt
+
+    record = {"card": card}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    regs, sass = phase_build(record)
+    phase_parity(pt, dev, record)
+    launches = phase_main(pt, dev, record)
+    trace = phase_trace_timing(pt, card, regs, sass, record)
     cluster_err = phase_cluster(pt, dev, record)
     beam_err = phase_beam(pt, dev, record)
     beam_launches, cluster_launches, band_err = phase_large(pt, dev, record)
@@ -780,12 +981,13 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
-    kernels = [("trace_kernel", "trace_kernel.py:96", launches, max_abs,
-                (ms, plain_ms)),
-               ("cluster_kernel", "cluster_kernel.py:57", cluster_launches,
-                cluster_err, times["cluster_kernel"]),
-               ("beam_kernel", "beam_kernel.py:167", beam_launches, beam_err,
-                times["beam_kernel"])]
+    kernels = [
+        ("trace_kernel", "trace_kernel.py:96", launches, trace["max_abs"],
+         (trace["ms"], trace["plain_ms"], trace["bound_ms"])),
+        ("cluster_kernel", "cluster_kernel.py:57", cluster_launches,
+         cluster_err, times["cluster_kernel"]),
+        ("beam_kernel", "beam_kernel.py:167", beam_launches, beam_err,
+         times["beam_kernel"])]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -795,6 +997,9 @@ def main():
         "max_abs_err": err,
         "ms": t[0],
         "plain_ms": t[1],
+        "bound_ms": t[2],
+        "bound_by": "operations",
+        "library_ms": None,
     } for name, where, n, err, t in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

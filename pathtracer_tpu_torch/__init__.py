@@ -4,16 +4,18 @@ Typical use, on an NVIDIA GPU:
 
     import pathtracer_tpu_torch as pt
     cam, scene = pt.cornell_box(res=(1024, 1024))
-    cam, scene = cam.to("cuda"), scene.to("cuda")
     film = pt.render(cam, scene, samples=256, depth=5, filename="out.png")
 
 Large meshes take the same call:
 
     from pathtracer_tpu_torch import meshes
     cam, sb = meshes.sphere_in_box(50, 100)          # 9,812 triangles
-    film = pt.render(cam.to("cuda"), sb.build().to("cuda"), samples=64)
+    film = pt.render(cam, sb.build(), samples=64)
 
-The render runs on the device of the scene's tensors.  On a CUDA scene the
+Cameras and scenes are built on ``device="cuda"`` unless the caller passes
+another device (``device="cpu"`` for the plain PyTorch path); without a
+card that default raises PyTorch's own error.  The render runs on the
+device of the scene's tensors.  On a CUDA scene the
 auto backend launches a hand-written kernel from ``csrc/`` (the megakernel
 up to 512 triangles, the coherent-beam kernel above), built with ``nvcc`` at
 first use; on a CPU scene it runs the plain PyTorch path.

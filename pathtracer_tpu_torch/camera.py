@@ -50,14 +50,31 @@ class Camera:
         return self.pos.device
 
     def to(self, device) -> "Camera":
-        return dataclasses.replace(
+        new = dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
+        if hasattr(self, "_host_pos"):
+            object.__setattr__(new, "_host_pos", self._host_pos)
+        return new
+
+    def host_pos(self) -> np.ndarray:
+        """The (3,) float32 position on the host: from the copy the
+        constructors keep (carried by ``to``, so reading it never waits for
+        the device), else copied from ``pos``.  A camera made by
+        ``dataclasses.replace`` (``move``, ``rotate``) keeps no copy."""
+        cached = getattr(self, "_host_pos", None)
+        return cached if cached is not None else self.pos.cpu().numpy()
+
+
+def _with_host_pos(cam: Camera, pos: np.ndarray) -> Camera:
+    object.__setattr__(cam, "_host_pos",
+                       np.array(pos, np.float32).reshape(3))
+    return cam
 
 
 def make_camera(pos, forward, up, res, fov, distance=1.0,
-                pixel_offset=0.5) -> Camera:
-    """Build a camera on the CPU.  ``fov`` is the horizontal field of view
-    in radians; ``res`` is (width, height)."""
+                pixel_offset=0.5, device="cuda") -> Camera:
+    """Build a camera on ``device``.  ``fov`` is the horizontal field of
+    view in radians; ``res`` is (width, height)."""
     pos = np.asarray(pos, np.float32)
     forward = np.asarray(forward, np.float32)
     up = np.asarray(up, np.float32)
@@ -72,18 +89,22 @@ def make_camera(pos, forward, up, res, fov, distance=1.0,
     w, h = int(res[0]), int(res[1])
     vx = 2.0 * distance * math.tan(fov / 2.0)
     vy = vx * h / w
-    return Camera(
-        pos=torch.from_numpy(pos),
-        forward=torch.from_numpy(fwd),
-        up=torch.from_numpy(upn),
-        right=torch.from_numpy(right),
-        world_up=torch.from_numpy(upn.copy()),
-        v_res=torch.from_numpy(np.array([vx, vy], np.float32)),
-        cell_size=torch.tensor(np.float32(vx / w)),
-        distance=torch.tensor(np.float32(distance)),
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    return _with_host_pos(Camera(
+        pos=t(pos),
+        forward=t(fwd),
+        up=t(upn),
+        right=t(right),
+        world_up=t(upn),
+        v_res=t([vx, vy]),
+        cell_size=t(vx / w),
+        distance=t(distance),
         res=(w, h),
         pixel_offset=float(pixel_offset),
-    )
+    ), pos)
 
 
 def get_rays(cam: Camera, w, h, u1, u2):

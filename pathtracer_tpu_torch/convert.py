@@ -11,12 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .camera import Camera
+from .camera import Camera, _with_host_pos
 from .scene import Scene
 
 
 def scene_from_arrays(v1, v2, v3, mat_type, albedo, emit, roughness,
-                      num_tris: int, *, device="cpu") -> Scene:
+                      num_tris: int, *, device="cuda") -> Scene:
     """Padded (T, 3) vertex arrays, (T,) material types, (T, 3) albedo and
     emission and (T,) roughness -> a ``Scene`` on ``device``."""
     return Scene.from_arrays(v1, v2, v3, mat_type, albedo, emit, roughness,
@@ -25,14 +25,14 @@ def scene_from_arrays(v1, v2, v3, mat_type, albedo, emit, roughness,
 
 def camera_from_arrays(pos, forward, up, right, world_up, v_res, cell_size,
                        distance, res, pixel_offset=0.5, *,
-                       device="cpu") -> Camera:
+                       device="cuda") -> Camera:
     """Camera fields as arrays (vectors (3,), v_res (2,), scalars ()) ->
     a ``Camera`` on ``device``."""
     def t(x):
         return torch.from_numpy(np.array(x, np.float32)).to(device)
 
-    return Camera(pos=t(pos), forward=t(forward), up=t(up), right=t(right),
-                  world_up=t(world_up), v_res=t(v_res),
-                  cell_size=t(cell_size), distance=t(distance),
-                  res=(int(res[0]), int(res[1])),
-                  pixel_offset=float(pixel_offset))
+    return _with_host_pos(
+        Camera(pos=t(pos), forward=t(forward), up=t(up), right=t(right),
+               world_up=t(world_up), v_res=t(v_res), cell_size=t(cell_size),
+               distance=t(distance), res=(int(res[0]), int(res[1])),
+               pixel_offset=float(pixel_offset)), pos)

@@ -23,9 +23,9 @@ def main(argv=None):
     add_device_arg(ap)
     args = ap.parse_args(argv)
 
-    cam, scene = pt.cornell_box(res=(args.res, args.res))
-    pt.render(cam.to(args.device), scene.to(args.device), args.spp,
-              args.depth, args.filename, backend=args.backend)
+    cam, scene = pt.cornell_box(res=(args.res, args.res), device=args.device)
+    pt.render(cam, scene, args.spp, args.depth, args.filename,
+              backend=args.backend)
 
 
 if __name__ == "__main__":

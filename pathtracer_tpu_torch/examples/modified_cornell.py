@@ -25,9 +25,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     for r in ROUGHNESS:
-        cam, scene = pt.modified_cornell(r, res=(args.res, args.res))
-        pt.render(cam.to(args.device), scene.to(args.device), args.spp,
-                  args.depth, f"{args.prefix}{r:g}.png",
+        cam, scene = pt.modified_cornell(r, res=(args.res, args.res),
+                                         device=args.device)
+        pt.render(cam, scene, args.spp, args.depth, f"{args.prefix}{r:g}.png",
                   backend=args.backend)
 
 

@@ -32,11 +32,12 @@ def main(argv=None):
     add_device_arg(ap)
     args = ap.parse_args(argv)
 
-    cam, sb = meshes.sphere_in_box(args.n_lat, args.n_lon)
+    cam, sb = meshes.sphere_in_box(args.n_lat, args.n_lon,
+                                   device=args.device)
     with tempfile.TemporaryDirectory() as d:
         obj = os.path.join(d, "scene.obj")
         meshes.save_obj(sb, obj)
-        scene = pt.load_obj_scene(obj, mtl_path=d)
+        scene = pt.load_obj_scene(obj, mtl_path=d, device=args.device)
     print(f"{scene.num_tris} triangles via OBJ round-trip")
 
     # The camera keeps its 512^2 image plane: a smaller res renders the
@@ -45,8 +46,8 @@ def main(argv=None):
     bvh = pt.build_bvh(scene)
     print(f"BVH: {bvh.num_nodes} nodes, depth {bvh.depth}, "
           f"max leaf {bvh.max_leaf}")
-    pt.render(cam.to(args.device), scene.to(args.device), args.spp,
-              args.depth, args.filename, bvh=bvh, backend=args.backend)
+    pt.render(cam, scene, args.spp, args.depth, args.filename, bvh=bvh,
+              backend=args.backend)
 
 
 if __name__ == "__main__":

@@ -86,22 +86,24 @@ def _room(sb: SceneBuilder, s: float = 500.0) -> None:
                  (170, s - 1, 170)), light)
 
 
-def sphere_in_box(n_lat: int = 50, n_lon: int = 100):
+def sphere_in_box(n_lat: int = 50, n_lon: int = 100, device="cuda"):
     """A sphere of 2 * n_lat * n_lon - 2 * n_lon triangles in the lit room
-    (9,812 triangles in all at the defaults).  Returns (camera, builder)."""
+    (9,812 triangles in all at the defaults).  Returns (camera on
+    ``device``, builder)."""
     sb = SceneBuilder()
     _room(sb)
     uv_sphere((250, 180, 250), 140.0, n_lat, n_lon, Diffuse(0.75),
               builder=sb)
     cam = make_camera((250, 250, -420), (0, 0, 1), (0, 1, 0), (512, 512),
-                      60 * DEG2RAD, 1.0)
+                      60 * DEG2RAD, 1.0, device=device)
     return cam, sb
 
 
-def mesh_garden(grid: int = 7, n_lat: int = 22, n_lon: int = 48):
+def mesh_garden(grid: int = 7, n_lat: int = 22, n_lon: int = 48,
+                device="cuda"):
     """A grid x grid field of alternating spheres and tori, each with its
     own diffuse color, in the lit room (105,708 triangles at the defaults).
-    Returns (camera, builder)."""
+    Returns (camera on ``device``, builder)."""
     sb = SceneBuilder()
     _room(sb)
     s = 500.0
@@ -122,7 +124,7 @@ def mesh_garden(grid: int = 7, n_lat: int = 22, n_lon: int = 48):
                 torus((cx, cy, cz), 0.72 * r, 0.3 * r,
                       n_lon, n_lat + 2, m, builder=sb)
     cam = make_camera((250, 330, -420), (0, -0.12, 1), (0, 1, 0),
-                      (512, 512), 62 * DEG2RAD, 1.0)
+                      (512, 512), 62 * DEG2RAD, 1.0, device=device)
     return cam, sb
 
 

@@ -112,6 +112,7 @@ def load_obj(filename: str, mtl_path: str = "./", *,
     return sb
 
 
-def load_obj_scene(filename: str, mtl_path: str = "./", **kw) -> Scene:
-    """The OBJ file's scene, on the CPU."""
-    return load_obj(filename, mtl_path, **kw).build()
+def load_obj_scene(filename: str, mtl_path: str = "./", *, device="cuda",
+                   **kw) -> Scene:
+    """The OBJ file's scene, on ``device``."""
+    return load_obj(filename, mtl_path, **kw).build(device=device)

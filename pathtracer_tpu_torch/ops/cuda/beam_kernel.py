@@ -41,8 +41,8 @@ from ...linalg import FLOAT_INF, SHIFT_BIAS, dot
 from ...materials import _TWO_PI, SPECULAR_TRIES
 from ...scene import Scene
 from ...utils import build
-from ..intersect import intersect_packed
-from .trace_kernel import _camera_params
+from ..intersect import MT_OPS, SLAB_OPS, boxes_entered, intersect_packed
+from .trace_kernel import SHADE_OPS, _camera_params
 
 TILE_PX = 2048        # pixels per tile sharing one bounce stream
 _TILE_LOG2 = 11
@@ -205,9 +205,11 @@ def _tile_draws(tiles: torch.Tensor, sidx: int, seed: int, depth: int,
 
 def _one_sample(camera: Camera, cam: torch.Tensor, accel: BeamAccel,
                 w, h, tile_local, tiles, sidx: int, depth: int, seed: int,
-                has_specular: bool) -> torch.Tensor:
+                has_specular: bool, segments: Optional[list] = None
+                ) -> torch.Tensor:
     """Radiance (3, n) of sample ``sidx`` at the band's pixels, in the
-    kernel's operation order."""
+    kernel's operation order.  ``segments`` receives (o, d, t) of the live
+    rays of every bounce (t = FLOAT_INF on a miss)."""
     n = w.shape[0]
     dev = w.device
     state = prng.sample_seed(w, h, camera.height, sidx, seed)
@@ -232,6 +234,8 @@ def _one_sample(camera: Camera, cam: torch.Tensor, accel: BeamAccel,
             t_l, row_l = intersect_packed(o[live], d[live], rows)
             best_t[live] = t_l
             best[live] = row_l
+            if segments is not None:
+                segments.append((o[live], d[live], t_l))
         hit_row = rows[best.clamp_min(0)]
         f_mat = torch.where(best >= 0, hit_row[:, 9], -1.0)
         if accel.mats_inline:
@@ -288,14 +292,16 @@ def render_tiles_beam_reference(camera: Camera, scene: Scene, sample0: int,
                                 accel: Optional[BeamAccel] = None,
                                 spp_per_call: Optional[int] = None,
                                 tile0: int = 0,
-                                n_tiles: Optional[int] = None
+                                n_tiles: Optional[int] = None,
+                                segments: Optional[list] = None
                                 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on the scene's device: the
     (3, n_tiles * 2048) device-order radiance sums of tiles
     [tile0, tile0 + n_tiles) over the samples [sample0, sample0 + samples),
     with the nearest hit by dense Möller–Trumbore against the accel's own
     packed rows.  It sums the samples of each call one by one and adds each
-    call's sum to the film, in the kernel's order."""
+    call's sum to the film, in the kernel's order.  ``segments``: as in
+    ``_one_sample``."""
     _check(camera, scene, sample0, samples, depth)
     tile0, n_tiles = _band(camera, tile0, n_tiles)
     if spp_per_call is None:
@@ -315,7 +321,7 @@ def render_tiles_beam_reference(camera: Camera, scene: Scene, sample0: int,
         for k in range(spp):
             acc = acc + _one_sample(camera, cam, accel, w, h, tile_local,
                                     tiles, sample0 + s + k, depth, seed,
-                                    scene.has_specular)
+                                    scene.has_specular, segments)
         film = film + acc
         s += spp
     return film
@@ -442,6 +448,50 @@ def render_film_beam(camera: Camera, scene: Scene, samples: int,
     film = render_sum_beam(camera, scene, 0, samples, depth, seed=seed,
                            accel=accel, spp_per_call=spp_per_call)
     return Film(camera.res, data=film / samples)
+
+
+def count_work(camera: Camera, scene: Scene, sample0: int, samples: int,
+               depth: int = 5, *, seed: int = prng.SEED) -> dict:
+    """The work a render of the whole film over the samples [sample0,
+    sample0 + samples) needs of any exact two-level traversal, from the
+    plain version's live ray segments: every segment tests every
+    supercluster box, the cluster boxes of every supercluster it enters
+    before its nearest hit, and the rows of every cluster it enters before
+    it.  Returns the counts and their operations (SLAB_OPS per box, MT_OPS
+    per row, SHADE_OPS per segment, three divisions per segment for the
+    reciprocal direction)."""
+    accel = _accel_for(scene)
+    segments = []
+    render_tiles_beam_reference(camera, scene, sample0, samples, depth,
+                                seed=seed, accel=accel, segments=segments)
+    S, C = accel.num_superclusters, accel.num_clusters
+    sc_ncl = accel.sc_ncl.long()
+    cl_sc = torch.repeat_interleave(
+        torch.arange(S, device=scene.device), sc_ncl)
+    # the j-th cluster of supercluster s is row sc_first[s] + j of
+    # cl_bounds
+    cl_rows = (accel.sc_first.long().repeat_interleave(sc_ncl)
+               + torch.arange(int(sc_ncl.sum()), device=scene.device)
+               - torch.repeat_interleave(torch.cumsum(sc_ncl, 0) - sc_ncl,
+                                         sc_ncl))
+    cl_bounds = accel.cl_bounds[cl_rows]
+    live = sc_tests = cl_tests = rows = 0
+    chunk = max(1, (1 << 22) // max(C, 1))
+    for o_all, d_all, t_all in segments:
+        live += o_all.shape[0]
+        for r0 in range(0, o_all.shape[0], chunk):
+            o, d = o_all[r0:r0 + chunk], d_all[r0:r0 + chunk]
+            t, inv = t_all[r0:r0 + chunk], 1.0 / d_all[r0:r0 + chunk]
+            sc_in = boxes_entered(o, inv, t, accel.sc_bounds[:S])
+            sc_tests += o.shape[0] * S
+            cl_tests += int((sc_in.to(torch.int64) * sc_ncl).sum())
+            cl_in = boxes_entered(o, inv, t, cl_bounds) & sc_in[:, cl_sc]
+            rows += int(cl_in.sum()) * accel.ctris
+    boxes = sc_tests + cl_tests
+    return {"live_segments": live, "sc_box_tests": sc_tests,
+            "cluster_box_tests": cl_tests, "rows": rows,
+            "ops": (boxes * SLAB_OPS + rows * MT_OPS
+                    + live * (SHADE_OPS + 3))}
 
 
 def count_tri_tests(camera: Camera, scene: Scene, samples: int = 8,

@@ -34,7 +34,7 @@ import torch
 
 from ...clusters import ClusterSet
 from ...utils import build
-from ..intersect import intersect_packed
+from ..intersect import MT_OPS, SLAB_OPS, boxes_entered, intersect_packed
 
 BLOCK_RAYS = 256      # rays per CUDA block; csrc/cluster_kernel.cu kThreads
 _MORTON_BITS = 6      # per axis: 18-bit cell, 3-bit octant sort keys
@@ -88,6 +88,26 @@ def intersect_clusters_reference(ray_o: torch.Tensor, ray_d: torch.Tensor,
     t, row = intersect_packed(ray_o, ray_d, cs.tri_data)
     tid = torch.where(row >= 0, cs.tid_map[row.clamp_min(0)], -1)
     return t, tid.to(torch.int32)
+
+
+def count_work(ray_o: torch.Tensor, ray_d: torch.Tensor, cs: ClusterSet,
+               t_hit: torch.Tensor) -> dict:
+    """The work these rays need of any exact cluster traversal: every ray
+    tests every cluster box, and the rows of every cluster it enters before
+    its nearest hit ``t_hit`` (R,).  Returns the box tests, the rows and
+    their operations (SLAB_OPS, MT_OPS each, the reciprocal direction's
+    three divisions per ray)."""
+    rays, n = ray_o.shape[0], cs.num_clusters
+    chunk = max(1, (1 << 22) // n)
+    rows = 0
+    for r0 in range(0, rays, chunk):
+        o, d = ray_o[r0:r0 + chunk], ray_d[r0:r0 + chunk]
+        entered = boxes_entered(o, 1.0 / d, t_hit[r0:r0 + chunk],
+                                cs.bounds[:n])
+        rows += int((entered.to(torch.int64) * cs.count[:n]).sum())
+    boxes = rays * n
+    return {"box_tests": boxes, "rows": rows,
+            "ops": boxes * SLAB_OPS + rows * MT_OPS + 3 * rays}
 
 
 def _block_order(ray_o: torch.Tensor, cs: ClusterSet) -> torch.Tensor:

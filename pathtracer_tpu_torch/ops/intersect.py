@@ -5,6 +5,9 @@
   triangle.  Invalid candidates are masked to FLOAT_INF and the nearest hit
   is the FIRST index of the minimum, the tie rule the CUDA kernels' strict
   ``t < best_t`` in row order reproduces.
+* ``intersect_plucker``: the same hit set from precomputed Plücker
+  coefficient rows, with the bounce-0 collapse: the plain version of the
+  megakernel's ``"plucker"`` loop.
 * ``intersect_packed``: the same test against packed ``[v1, e1, e2]`` rows,
   in chunks of rays: the plain version of the cluster and beam kernels.
 * ``intersect_bvh``: per-ray stack traversal of the flat BVH, one masked
@@ -19,6 +22,19 @@ from __future__ import annotations
 import torch
 
 from ..linalg import EPS, FLOAT_INF, cross, dot
+
+# Floating-point operations of one test, counted from the formulas below
+# (comparisons not counted), for the kernels' bounds: Möller–Trumbore with
+# its division (``_mt``) and the slab test (6 subtractions, 6 products,
+# 6 min/max per axis pair, 4 to combine the axes: ``boxes_entered``).
+# ``intersect_plucker``: a, 1/a, the u*a and v*a sums, t*a, three products
+# by 1/a and u + v; with the bounce-0 collapse (``primary``) the sums are
+# 3-term dots and t*a is r0; the ray moment o x d once per ray.
+MT_OPS = 46
+SLAB_OPS = 22
+PLUCKER_OPS = 38
+PLUCKER_PRIMARY_OPS = 20
+MOMENT_OPS = 9
 
 
 def intersect_brute(ray_o, ray_d, v1, v2, v3):
@@ -46,6 +62,51 @@ def intersect_brute(ray_o, ray_d, v1, v2, v3):
              & (u >= 0.0) & (u <= 1.0)
              & (v >= 0.0) & (u + v <= 1.0)
              & (t > 0.0))
+    t = torch.where(valid, t, FLOAT_INF)
+    tid = torch.argmin(t, dim=-1).to(torch.int32)
+    tmin = torch.amin(t, dim=-1)
+    tid = torch.where(tmin < FLOAT_INF, tid, -1)
+    return tmin, tid
+
+
+def intersect_plucker(ray_o, ray_d, rows, primary: bool = False):
+    """Nearest hit by the Plücker coefficient rows (T, 27) of
+    ``ops/cuda/trace_kernel._triangle_params_plucker``: the same hit set as
+    Möller–Trumbore up to float reassociation.  With the ray moment
+    c = o x d, per triangle
+
+        a = Na.d,  u*a = e2.c + kp.d,  v*a = me1.c + kq.d,  t*a = N.o + nv,
+
+    summed left to right as written.  ``primary``: every ray starts at the
+    camera position the rows were packed for (bounce 0), and the sums
+    collapse to u*a = pc.d, v*a = qc.d, t*a = r0.  Exact ``1.0 / a``; the
+    nearest hit is the first index of the minimum, as in
+    :func:`intersect_brute`.  Returns (t, tid) as :func:`intersect_brute`.
+    """
+    r = [rows[:, i] for i in range(27)]
+    d = ray_d[..., None, :]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    a = r[0] * dx + r[1] * dy + r[2] * dz
+    f = 1.0 / a
+    if primary:
+        p = r[19] * dx + r[20] * dy + r[21] * dz
+        q = r[22] * dx + r[23] * dy + r[24] * dz
+        t = f * r[25]
+    else:
+        o = ray_o[..., None, :]
+        ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+        cx = oy * dz - oz * dy
+        cy = oz * dx - ox * dz
+        cz = ox * dy - oy * dx
+        p = (r[10] * cx + r[11] * cy + r[12] * cz
+             + r[7] * dx + r[8] * dy + r[9] * dz)
+        q = (r[16] * cx + r[17] * cy + r[18] * cz
+             + r[13] * dx + r[14] * dy + r[15] * dz)
+        t = f * (r[3] * ox + r[4] * oy + r[5] * oz + r[6])
+    u = f * p
+    v = f * q
+    valid = ((torch.abs(a) >= EPS) & (u >= 0.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > 0.0))
     t = torch.where(valid, t, FLOAT_INF)
     tid = torch.argmin(t, dim=-1).to(torch.int32)
     tmin = torch.amin(t, dim=-1)
@@ -121,6 +182,18 @@ def aabb_hit(ray_o, inv_ray_d, lb, rt):
     tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
     tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
     return (tmax >= 0.0) & (tmin <= tmax)
+
+
+def boxes_entered(ray_o, inv_ray_d, t_hit, bounds):
+    """(R, B) bool: ray r passes the slab test of box b (rows [lb, rt] of
+    ``bounds``) and enters it before its nearest hit ``t_hit`` (R,): the
+    boxes any exact front-to-back traversal has to open.  A NaN slab
+    (0 * inf) rejects here, so the count is never above the kernels'."""
+    t1 = (bounds[None, :, 0:3] - ray_o[:, None]) * inv_ray_d[:, None]
+    t2 = (bounds[None, :, 3:6] - ray_o[:, None]) * inv_ray_d[:, None]
+    tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return (tmax >= 0.0) & (tmin <= tmax) & (tmin < t_hit[:, None])
 
 
 def intersect_bvh(ray_o, ray_d, flat, v1, v2, v3, max_leaf: int,

@@ -11,7 +11,7 @@ triangle id with a plain ``index_select``.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,7 +74,9 @@ def park_pose(scene: Scene):
 def trace_rays(table: torch.Tensor, intersect: IntersectFn,
                ray_o: torch.Tensor, ray_d: torch.Tensor, depth: int,
                rng_state: torch.Tensor, has_specular: bool = True,
-               park_pose: Optional[tuple] = None) -> torch.Tensor:
+               park_pose: Optional[tuple] = None,
+               primary_intersect: Optional[IntersectFn] = None,
+               live: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Trace a ray batch to radiance (..., 3).
 
     table: (T, 12) from :func:`shade_table`; intersect: (o, d) -> (t, tid);
@@ -83,6 +85,10 @@ def trace_rays(table: torch.Tensor, intersect: IntersectFn,
     dead rays are moved there instead of keeping their last pose, so they
     fail every box test of the cluster kernel (and its optional ray sort
     packs them together).  The radiance is the same either way.
+    primary_intersect: the intersector of bounce 0, where every ray starts
+    at the camera (default ``intersect``).
+    live: a list that receives, per bounce, the (...,) mask of the rays
+    whose path is alive: the ray segments a path tracer must trace.
     """
     if park_pose is not None:
         # Filled on the device: a host-to-device copy would synchronise.
@@ -94,8 +100,13 @@ def trace_rays(table: torch.Tensor, intersect: IntersectFn,
     rad = torch.zeros_like(ray_o)
     alive = torch.ones(ray_o.shape[:-1], dtype=torch.bool,
                        device=ray_o.device)
-    for _ in range(depth):
-        t, tid = intersect(ray_o, ray_d)
+    for b in range(depth):
+        if live is not None:
+            live.append(alive)
+        if b == 0 and primary_intersect is not None:
+            t, tid = primary_intersect(ray_o, ray_d)
+        else:
+            t, tid = intersect(ray_o, ray_d)
         hit = (tid >= 0) & alive
         hitm = hit[..., None]
 
@@ -138,12 +149,16 @@ def sample_radiance(camera: Camera, scene: Scene, table: torch.Tensor,
                     w: torch.Tensor, h: torch.Tensor, sidx: torch.Tensor,
                     depth: int, seed: int,
                     intersect: Optional[IntersectFn] = None,
-                    park_pose: Optional[tuple] = None) -> torch.Tensor:
+                    park_pose: Optional[tuple] = None,
+                    primary_intersect: Optional[IntersectFn] = None,
+                    live: Optional[List[torch.Tensor]] = None
+                    ) -> torch.Tensor:
     """Radiance (S, *w.shape, 3) of the samples ``sidx`` (S,) at pixels
     (w, h): per-(pixel, sample) seed, two jitter draws, camera ray, then
     :func:`trace_rays` over ``intersect`` (default
-    :func:`intersect_brute`).  This is the whole per-sample path of the
-    tile driver and of the megakernel's plain version."""
+    :func:`intersect_brute`; ``primary_intersect`` and ``live`` as in
+    :func:`trace_rays`).  This is the whole per-sample path of the tile
+    driver and of the megakernel's plain version."""
     sidx = sidx.reshape((-1,) + (1,) * w.dim())
     state = sample_seed(w[None], h[None], camera.height, sidx, seed)
     state, u1 = rand01(state)
@@ -155,4 +170,5 @@ def sample_radiance(camera: Camera, scene: Scene, table: torch.Tensor,
             return intersect_brute(o, d, scene.v1, scene.v2, scene.v3)
 
     return trace_rays(table, intersect, ray_o, ray_d, depth, state,
-                      has_specular=scene.has_specular, park_pose=park_pose)
+                      has_specular=scene.has_specular, park_pose=park_pose,
+                      primary_intersect=primary_intersect, live=live)

@@ -70,7 +70,7 @@ class Scene:
 
     @classmethod
     def from_arrays(cls, v1, v2, v3, mat_type, albedo, emit, roughness,
-                    num_tris: int, device="cpu") -> "Scene":
+                    num_tris: int, device="cuda") -> "Scene":
         """Scene from padded host arrays, with its host caches."""
         host_v = tuple(np.ascontiguousarray(a, np.float32)
                        for a in (v1, v2, v3))
@@ -149,8 +149,8 @@ class SceneBuilder:
     def __len__(self):
         return len(self._v)
 
-    def build(self, pad_to_multiple: int = 8) -> Scene:
-        """The scene on the CPU; move it with ``Scene.to``."""
+    def build(self, pad_to_multiple: int = 8, device="cuda") -> Scene:
+        """The scene on ``device``."""
         n = len(self._v)
         if n == 0:
             raise ValueError("No triangles in scene.")
@@ -172,7 +172,7 @@ class SceneBuilder:
             emit[i] = m.emit
             rough[i] = m.roughness
         return Scene.from_arrays(verts[0], verts[1], verts[2], mtype, albedo,
-                                 emit, rough, n)
+                                 emit, rough, n, device=device)
 
 
 # Cornell-box quad corners shared by both example scenes.
@@ -204,8 +204,8 @@ _TALL_BOX = (
 )
 
 
-def cornell_box(res=(1024, 1024)) -> Tuple[Camera, Scene]:
-    """The standard 30-triangle Cornell box, on the CPU."""
+def cornell_box(res=(1024, 1024), device="cuda") -> Tuple[Camera, Scene]:
+    """The standard Cornell box (32 triangles), on ``device``."""
     white, light = Diffuse(1), Emit(1)
     green, red = Diffuse(0, 1, 0), Diffuse(1, 0, 0)
 
@@ -222,14 +222,15 @@ def cornell_box(res=(1024, 1024)) -> Tuple[Camera, Scene]:
         sb.add_quad(q, white, fan=True)
 
     cam = make_camera((278, 278, -500), (0, 0, 1), (0, 1, 0), res,
-                      60 * DEG2RAD, 1.0)
-    return cam, sb.build()
+                      60 * DEG2RAD, 1.0, device=device)
+    return cam, sb.build(device=device)
 
 
-def modified_cornell(roughness: float,
-                     res=(1024, 1024)) -> Tuple[Camera, Scene]:
+def modified_cornell(roughness: float, res=(1024, 1024),
+                     device="cuda") -> Tuple[Camera, Scene]:
     """Specular-walled Cornell variant: all six walls SPECULAR white at the
-    given roughness, short box red, tall box green, diagonal camera."""
+    given roughness, short box red, tall box green, diagonal camera; on
+    ``device``."""
     walls = Specular(roughness)
     light = Emit(1)
     red, green = Diffuse(1, 0, 0), Diffuse(0, 1, 0)
@@ -248,18 +249,18 @@ def modified_cornell(roughness: float,
         sb.add_quad(q, green, fan=True)
 
     cam = make_camera((100, 400, 0), (0.5, -0.5, 1), (0, 1, 0), res,
-                      80 * DEG2RAD, 1.0)
-    return cam, sb.build()
+                      80 * DEG2RAD, 1.0, device=device)
+    return cam, sb.build(device=device)
 
 
-def corner_scene(res=(512, 512)) -> Tuple[Camera, Scene]:
+def corner_scene(res=(512, 512), device="cuda") -> Tuple[Camera, Scene]:
     """3-triangle corner fixture: two diffuse triangles and one emissive,
-    viewed from (1.8, 1.8, 1.8)."""
+    viewed from (1.8, 1.8, 1.8); on ``device``."""
     sb = SceneBuilder()
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), Diffuse(1))
     sb.add_triangle((0, 0, 0), (0, 0, 1), (0, 1, 0), Diffuse(0, 1, 0))
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 0, 1),
                     HostMaterial(mat.EMIT, color=(0, 0, 1), emit=(1, 1, 1)))
     cam = make_camera((1.8, 1.8, 1.8), (-1, -1, -1), (0, 1, 0), res,
-                      60 * DEG2RAD, 1.0)
-    return cam, sb.build()
+                      60 * DEG2RAD, 1.0, device=device)
+    return cam, sb.build(device=device)

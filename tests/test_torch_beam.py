@@ -24,10 +24,12 @@ def lit_sphere(m, res, n_lat=10, n_lon=20):
     """sphere_in_box with the camera tilted up so the ceiling light is in
     view (tests/test_beam.py): small films of the stock view are black.
     ``m`` is either package."""
-    _, sb = {jpt: jmeshes, tpt: tmeshes}[m].sphere_in_box(n_lat, n_lon)
+    kw = {"device": "cpu"} if m is tpt else {}
+    _, sb = {jpt: jmeshes, tpt: tmeshes}[m].sphere_in_box(n_lat, n_lon,
+                                                           **kw)
     cam = m.make_camera((250, 250, -420), (0, 0.35, 1), (0, 1, 0), res,
-                        60 * m.DEG2RAD, 1.0)
-    return cam, sb.build()
+                        60 * m.DEG2RAD, 1.0, **kw)
+    return cam, sb.build(**kw)
 
 
 # (JAX camera and scene, spp, depth, seed).  At most three JAX renders: the
@@ -104,7 +106,7 @@ def test_checkpoint_resume_bit_identical(tmp_path, monkeypatch):
 def test_accel_cache_not_fooled_by_sum_preserving_edit():
     """Swapping the red and green walls keeps every array sum; the byte
     hash still tells the scenes apart (tests/test_beam.py)."""
-    cam, scene = tpt.cornell_box(res=(32, 32))
+    cam, scene = tpt.cornell_box(res=(32, 32), device="cpu")
     alb = as_np(scene.albedo).copy()
     red = np.nonzero(alb[:, 0] > alb[:, 1] + 0.2)[0]
     green = np.nonzero(alb[:, 1] > alb[:, 0] + 0.2)[0]
@@ -115,7 +117,8 @@ def test_accel_cache_not_fooled_by_sum_preserving_edit():
     assert np.isclose(swapped.sum(), alb.sum())
     scene2 = tpt.scene_from_arrays(
         *(as_np(getattr(scene, f)) for f in ("v1", "v2", "v3", "mat_type")),
-        swapped, as_np(scene.emit), as_np(scene.roughness), scene.num_tris)
+        swapped, as_np(scene.emit), as_np(scene.roughness), scene.num_tris,
+        device="cpu")
     a1, a2 = tbk._accel_for(scene), tbk._accel_for(scene2)
     assert a1 is not a2 and tbk._accel_for(scene) is a1
     assert not torch.equal(a1.mats, a2.mats)
@@ -128,7 +131,9 @@ def test_accel_cache_evicts_the_least_recently_used(monkeypatch):
     """A hit refreshes its entry: after four other scenes and one more hit
     on the first, a fifth scene evicts the second, not the first."""
     monkeypatch.setattr(tbk, "_ACCEL_CACHE", [])
-    scenes = [tpt.meshes.sphere_in_box(4, 6 + k)[1].build() for k in range(5)]
+    scenes = [tpt.meshes.sphere_in_box(4, 6 + k, device="cpu")[1].build(
+        device="cpu")
+              for k in range(5)]
     first = tbk._accel_for(scenes[0])
     for s in scenes[1:4]:
         tbk._accel_for(s)
@@ -169,7 +174,7 @@ def test_rejects_what_the_kernel_cannot_take():
                     tpt.HostMaterial(tpt.DIFFUSE, color=(1, 1, 1),
                                      emit=(1, 0, 0)))
     with pytest.raises(ValueError, match="non-EMIT"):
-        tbk.render_sum_beam(cam, sb.build(), 0, 1, 1)
+        tbk.render_sum_beam(cam, sb.build(device="cpu"), 0, 1, 1)
 
 
 def test_inline_materials_match_brute_at_depth_1():
@@ -185,10 +190,10 @@ def test_inline_materials_match_brute_at_depth_1():
         z = (i // 10) * 12.0 + 5.0
         sb.add_quad(((x, 0, z), (x + 9, 0, z), (x + 9, 0, z + 10),
                      (x, 0, z + 10)), tpt.Diffuse(0.1 + 0.012 * i, 0.5, 0.9))
-    scene = sb.build()
+    scene = sb.build(device="cpu")
     assert tbk._accel_for(scene).mats_inline
     cam = tpt.make_camera((50, 60, -60), (0, 0, 1), (0, 1, 0), (16, 16),
-                          70 * tpt.DEG2RAD, 1.0)
+                          70 * tpt.DEG2RAD, 1.0, device="cpu")
     beam = tbk.render_sum_beam(cam, scene, 0, 2, 1, seed=3)
     brute = tpt.render_film(cam, scene, 2, 1, seed=3, backend="brute").data
     assert float(beam.max()) > 0

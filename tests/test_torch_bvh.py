@@ -23,16 +23,16 @@ from _torch_parity import SCENE_FIELDS, as_np, carry
 BVH_FIELDS = ("lb", "rt", "left", "right", "tri_start", "tri_end", "tri_idx")
 
 MESHES = {
-    "sphere8x12": lambda m: m.sphere_in_box(8, 12),
-    "sphere10x20": lambda m: m.sphere_in_box(10, 20),
-    "garden2": lambda m: m.mesh_garden(grid=2),
+    "sphere8x12": lambda m, **kw: m.sphere_in_box(8, 12, **kw),
+    "sphere10x20": lambda m, **kw: m.sphere_in_box(10, 20, **kw),
+    "garden2": lambda m, **kw: m.mesh_garden(grid=2, **kw),
 }
 
 
 def _pair(name):
     """(JAX scene, port scene), each built by its own package."""
     return (MESHES[name](jmeshes)[1].build(),
-            MESHES[name](tmeshes)[1].build())
+            MESHES[name](tmeshes, device="cpu")[1].build(device="cpu"))
 
 
 def assert_same_arrays(jobj, tobj, fields):
@@ -48,7 +48,7 @@ def test_meshes_match_jax(name):
     assert tscene.num_tris == jscene.num_tris
     assert_same_arrays(jscene, tscene, SCENE_FIELDS)
     jcam, _ = MESHES[name](jmeshes)
-    tcam, _ = MESHES[name](tmeshes)
+    tcam, _ = MESHES[name](tmeshes, device="cpu")
     for f in ("pos", "forward", "up", "right", "v_res", "cell_size"):
         np.testing.assert_array_equal(as_np(getattr(tcam, f)),
                                       np.asarray(getattr(jcam, f)))
@@ -88,7 +88,7 @@ def test_native_binding(tmp_path):
         base = rng.uniform(-10, 10, 3)
         sb.add_triangle(base, base + rng.normal(0, 0.5, 3),
                         base + rng.normal(0, 0.5, 3), tpt.Diffuse(1))
-    scene = sb.build()
+    scene = sb.build(device="cpu")
     assert_same_arrays(tpt.build_bvh(scene, use_native=True),
                        tpt.build_bvh(scene, use_native=False), BVH_FIELDS)
     img = rng.integers(0, 256, (9, 7, 3), dtype=np.uint8)
@@ -105,7 +105,7 @@ def test_bvh_moves_to_device_with_host_copies():
 
 def test_obj_round_trip_matches_jax(tmp_path):
     _, jsb = jmeshes.sphere_in_box(6, 8)
-    _, tsb = tmeshes.sphere_in_box(6, 8)
+    _, tsb = tmeshes.sphere_in_box(6, 8, device="cpu")
     jdir, tdir = tmp_path / "jax", tmp_path / "torch"
     jdir.mkdir()
     tdir.mkdir()
@@ -114,8 +114,10 @@ def test_obj_round_trip_matches_jax(tmp_path):
     for name in ("m.obj", "m.mtl"):
         assert (tdir / name).read_text() == (jdir / name).read_text(), name
     jscene = jpt.load_obj_scene(str(jdir / "m.obj"), mtl_path=str(jdir))
-    tscene = tpt.load_obj_scene(str(jdir / "m.obj"), mtl_path=str(jdir))
-    assert tscene.num_tris == jscene.num_tris == tsb.build().num_tris
+    tscene = tpt.load_obj_scene(str(jdir / "m.obj"), mtl_path=str(jdir),
+                                device="cpu")
+    assert (tscene.num_tris == jscene.num_tris
+            == tsb.build(device="cpu").num_tris)
     assert_same_arrays(jscene, tscene, SCENE_FIELDS)
 
 
@@ -127,11 +129,12 @@ def test_obj_fan_triangulation_and_illum(tmp_path):
         "usemtl lamp\nf 1 2 3 4\nusemtl odd\nf -4/1 -3/2/3 -2//1\n")
     path = str(tmp_path / "q.obj")
     jscene = jpt.load_obj_scene(path, mtl_path=str(tmp_path))
-    tscene = tpt.load_obj_scene(path, mtl_path=str(tmp_path))
+    tscene = tpt.load_obj_scene(path, mtl_path=str(tmp_path), device="cpu")
     assert tscene.num_tris == 3
     assert_same_arrays(jscene, tscene, SCENE_FIELDS)
     strict = tpt.load_obj(path, str(tmp_path),
-                          strict_reference_triangulation=True).build()
+                          strict_reference_triangulation=True).build(
+                              device="cpu")
     assert strict.num_tris == 2
 
 
@@ -179,7 +182,7 @@ def test_intersect_packed_matches_brute_tie_rule():
     sb = tpt.SceneBuilder()
     for _ in range(2):
         sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), tpt.Diffuse(1))
-    scene = sb.build()
+    scene = sb.build(device="cpu")
     rows = torch.cat([scene.v1, scene.v2 - scene.v1, scene.v3 - scene.v1],
                      dim=-1)
     o = torch.tensor([[0.2, 0.2, 1.0], [2.0, 2.0, 1.0]])
@@ -198,7 +201,7 @@ def test_park_pose_matches_jax(name):
 
 def test_trace_rays_park_pose_keeps_radiance():
     _, tscene = _pair("sphere8x12")
-    cam, _ = tmeshes.sphere_in_box(8, 12)
+    cam, _ = tmeshes.sphere_in_box(8, 12, device="cpu")
     cam = carry_res(cam, (8, 8))
     table = ttrace.shade_table(tscene)
     w = torch.arange(8).expand(8, 8)

@@ -43,17 +43,21 @@ def inline_scenes():
             z = (i // 10) * 12.0 + 5.0
             sb.add_quad(((x, 0, z), (x + 9, 0, z), (x + 9, 0, z + 10),
                          (x, 0, z + 10)), m.Diffuse(0.1 + 0.012 * i, 0.5, 0.9))
-        out.append(sb.build())
+        out.append(sb.build(**({"device": "cpu"} if m is tpt else {})))
     return tuple(out)
 
 
+def _mesh_pair(name, *args, **kwargs):
+    """(JAX scene, port scene on the CPU) of one procedural mesh."""
+    port = getattr(tmeshes, name)(*args, device="cpu", **kwargs)[1]
+    return (getattr(jmeshes, name)(*args, **kwargs)[1].build(),
+            port.build(device="cpu"))
+
+
 SCENES = {
-    "sphere8x12": lambda: (jmeshes.sphere_in_box(8, 12)[1].build(),
-                           tmeshes.sphere_in_box(8, 12)[1].build()),
-    "sphere10x20": lambda: (jmeshes.sphere_in_box(10, 20)[1].build(),
-                            tmeshes.sphere_in_box(10, 20)[1].build()),
-    "garden2": lambda: (jmeshes.mesh_garden(grid=2)[1].build(),
-                        tmeshes.mesh_garden(grid=2)[1].build()),
+    "sphere8x12": lambda: _mesh_pair("sphere_in_box", 8, 12),
+    "sphere10x20": lambda: _mesh_pair("sphere_in_box", 10, 20),
+    "garden2": lambda: _mesh_pair("mesh_garden", grid=2),
     "cornell": lambda: (jpt.cornell_box(res=(8, 8))[1],
                         carry(*jpt.cornell_box(res=(8, 8)))[1]),
     "inline70": inline_scenes,
@@ -117,7 +121,8 @@ def test_beam_accel_rejects_emissive_non_emit():
                         m.HostMaterial(m.DIFFUSE, color=(1, 1, 1),
                                        emit=(1, 0, 0)))
         with pytest.raises(ValueError, match="non-EMIT"):
-            m.build_beam_accel(sb.build())
+            m.build_beam_accel(
+                sb.build(**({"device": "cpu"} if m is tpt else {})))
 
 
 def test_cluster_set_moves_to_device():

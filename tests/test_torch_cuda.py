@@ -7,10 +7,12 @@ card and no JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Kernel and plain version round every operation alike (the library builds
-with --fmad=false), so they are held to the film bar of the CPU parity
-tests: atol 2e-4 on all but 1% of the pixels (see tests/_torch_parity.py).
+with --fmad=false): each trace-kernel loop is held to bit identity with its
+plain version, the other checks to the film bar of the CPU parity tests,
+atol 2e-4 on all but 1% of the pixels (see tests/_torch_parity.py).
 """
 
+import ctypes
 import math
 
 import pytest
@@ -25,9 +27,10 @@ FILM_ATOL = 2e-4
 MAX_FLIP_SHARE = 0.01
 
 SCENES = {
-    "corner": lambda res: tpt.corner_scene(res=res),
-    "cornell": lambda res: tpt.cornell_box(res=res),
-    "specular": lambda res: tpt.modified_cornell(0.3, res=res),
+    "corner": lambda res, dev: tpt.corner_scene(res=res, device=dev),
+    "cornell": lambda res, dev: tpt.cornell_box(res=res, device=dev),
+    "specular": lambda res, dev: tpt.modified_cornell(0.3, res=res,
+                                                      device=dev),
 }
 
 
@@ -41,8 +44,7 @@ def cuda_device():
 
 
 def _on(device, name, res):
-    cam, scene = SCENES[name](res)
-    return cam.to(device), scene.to(device)
+    return SCENES[name](res, device)
 
 
 @pytest.mark.cuda
@@ -60,13 +62,56 @@ def test_kernel_matches_reference(cuda_device, name):
 
 
 @pytest.mark.cuda
-def test_band_and_window_identities(cuda_device):
+@pytest.mark.parametrize("loop", ttk.LOOPS)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_loop_bit_identical_to_plain(cuda_device, name, loop):
+    """Each loop's film equals its plain version's bit for bit: the same
+    operations in the same order, --fmad=false."""
+    cam, scene = _on(cuda_device, name, (64, 64))
+    before = ttk.LOOP_LAUNCHES[loop]
+    got = ttk.render_sum_cuda(cam, scene, 0, 4, 5, loop=loop)
+    assert ttk.LOOP_LAUNCHES[loop] == before + 1
+    want = ttk.render_sum_reference(cam, scene, 0, 4, 5, loop=loop)
+    torch.cuda.synchronize()
+    assert float(got.sum()) > 0.0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ttk.LOOPS)
+def test_largest_scene_takes_the_shared_memory_opt_in(cuda_device, loop):
+    """511 triangles and a light: above 48 KB of shared memory a block
+    (rows, shade table, pool slots), so the launch needs the opt-in."""
+    gen = torch.Generator().manual_seed(3)
+    sb = tpt.SceneBuilder()
+    sb.add_triangle((-50, 60, -50), (50, 60, -50), (0, 60, 50), tpt.Emit(4))
+    for _ in range(ttk.MAX_CUDA_TRIS - 1):
+        base = torch.rand(3, generator=gen) * 80 - 40
+        sb.add_triangle(tuple(base.tolist()),
+                        tuple((base + torch.randn(3, generator=gen) * 6)
+                              .tolist()),
+                        tuple((base + torch.randn(3, generator=gen) * 6)
+                              .tolist()),
+                        tpt.Diffuse(0.7))
+    scene = sb.build(device=cuda_device)
+    cam = tpt.make_camera((0, 0, -120), (0, 0, 1), (0, 1, 0), (32, 32),
+                          1.0, device=cuda_device)
+    assert scene.num_tris == ttk.MAX_CUDA_TRIS
+    got = ttk.render_sum_cuda(cam, scene, 0, 2, 3, loop=loop)
+    want = ttk.render_sum_reference(cam, scene, 0, 2, 3, loop=loop)
+    torch.cuda.synchronize()
+    assert float(got.sum()) > 0.0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ttk.LOOPS)
+def test_band_and_window_identities(cuda_device, loop):
     cam, scene = _on(cuda_device, "specular", (64, 48))
-    full = ttk.render_sum_cuda(cam, scene, 0, 4, 5)
-    band = ttk.render_sum_cuda(cam, scene, 0, 4, 5, h0=17, band_h=13)
+    full = ttk.render_sum_cuda(cam, scene, 0, 4, 5, loop=loop)
+    band = ttk.render_sum_cuda(cam, scene, 0, 4, 5, h0=17, band_h=13,
+                               loop=loop)
     assert torch.equal(band, full[17:30])
-    split = (ttk.render_sum_cuda(cam, scene, 0, 1, 5)
-             + ttk.render_sum_cuda(cam, scene, 1, 3, 5))
+    split = (ttk.render_sum_cuda(cam, scene, 0, 1, 5, loop=loop)
+             + ttk.render_sum_cuda(cam, scene, 1, 3, 5, loop=loop))
     torch.testing.assert_close(split, full, rtol=0, atol=1e-6)
 
 
@@ -105,19 +150,45 @@ def test_rejects_emissive_non_emit(cuda_device):
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                     tpt.HostMaterial(tpt.DIFFUSE, color=(1, 1, 1),
                                      emit=(1, 0, 0)))
-    scene = sb.build().to(cuda_device)
+    scene = sb.build(device=cuda_device)
     cam = tpt.make_camera((0.2, 0.2, 2), (0, 0, -1), (0, 1, 0), (8, 8),
-                          1.0).to(cuda_device)
+                          1.0, device=cuda_device)
     with pytest.raises(ValueError, match="non-EMIT"):
         ttk.render_sum_cuda(cam, scene, 0, 1, 2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1])
+def test_kernel_row_multiple_is_the_wrappers(cuda_device, extra):
+    """The wrapper pads to the row multiple the library reports, and the
+    kernel refuses a row count off it (cudaErrorInvalidValue)."""
+    from pathtracer_tpu_torch.utils import build
+    cam, scene = _on(cuda_device, "cornell", (8, 8))
+    lib = build.load_library()
+    lib.pt_trace_row_multiple.restype = ctypes.c_int
+    multiple = lib.pt_trace_row_multiple()
+    rows = ttk._kernel_rows(scene, cam, "mt", multiple)
+    n_rows = rows.shape[0] + extra
+    rows = torch.cat([rows, rows.new_zeros((extra, rows.shape[1]))])
+    tab = ttk._packed_table(scene)
+    cp = ttk._camera_params(cam)
+    film = torch.zeros((8, 8, 3), device=cuda_device)
+    fn = lib.pt_trace_render
+    fn.argtypes = ttk._ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(rows.data_ptr(), tab.data_ptr(), cp.data_ptr(),
+             film.data_ptr(), n_rows, scene.num_tris, 8, 8, 8, 0, 0, 1, 5, 0, 0, 0,
+             cuda_device.index or 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert multiple > 1 and err == (0 if extra == 0 else 1)
+
+
 def _lit_sphere(device, res, n_lat=10, n_lon=20):
     """sphere_in_box with the ceiling light in view (tests/test_beam.py)."""
-    _, sb = tpt.meshes.sphere_in_box(n_lat, n_lon)
+    _, sb = tpt.meshes.sphere_in_box(n_lat, n_lon, device=device)
     cam = tpt.make_camera((250, 250, -420), (0, 0.35, 1), (0, 1, 0), res,
-                          60 * tpt.DEG2RAD, 1.0)
-    return cam.to(device), sb.build().to(device)
+                          60 * tpt.DEG2RAD, 1.0, device=device)
+    return cam, sb.build(device=device)
 
 
 def _inline70(device, res, specular=False):
@@ -135,8 +206,8 @@ def _inline70(device, res, specular=False):
         sb.add_quad(((x, 0, z), (x + 9, 0, z), (x + 9, 0, z + 10),
                      (x, 0, z + 10)), m)
     cam = tpt.make_camera((50, 60, -60), (0, 0, 1), (0, 1, 0), res,
-                          70 * tpt.DEG2RAD, 1.0)
-    return cam.to(device), sb.build().to(device)
+                          70 * tpt.DEG2RAD, 1.0, device=device)
+    return cam, sb.build(device=device)
 
 
 @pytest.mark.cuda
@@ -168,10 +239,9 @@ def test_beam_kernel_matches_reference(cuda_device, name, depth):
     """All four kernel instances: table or inline materials, each with and
     without the specular branch."""
     make = {"sphere": lambda r: _lit_sphere(cuda_device, r),
-            "cornell": lambda r: tuple(x.to(cuda_device)
-                                       for x in tpt.cornell_box(res=r)),
-            "specular": lambda r: tuple(
-                x.to(cuda_device) for x in tpt.modified_cornell(0.05, res=r)),
+            "cornell": lambda r: tpt.cornell_box(res=r, device=cuda_device),
+            "specular": lambda r: tpt.modified_cornell(0.05, res=r,
+                                                       device=cuda_device),
             "inline70": lambda r: _inline70(cuda_device, r),
             "inline70_specular": lambda r: _inline70(cuda_device, r, True)}
     cam, scene = make[name]((64, 64))
@@ -202,7 +272,7 @@ def test_beam_band_and_window_identities(cuda_device):
 @pytest.mark.cuda
 def test_large_scene_backends_launch_their_kernels(cuda_device):
     cam, _ = _lit_sphere(cuda_device, (32, 32))
-    scene = tpt.meshes.mesh_garden(grid=1)[1].build().to(cuda_device)
+    scene = tpt.meshes.mesh_garden(grid=1)[1].build(device=cuda_device)
     assert scene.padded_size > 512
     before = tbk.LAUNCHES
     beam = tpt.render_film(cam, scene, 4, 3)
@@ -224,7 +294,7 @@ def test_auto_falls_back_to_cluster_with_a_warning(cuda_device):
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                     tpt.HostMaterial(tpt.DIFFUSE, color=(1, 1, 1),
                                      emit=(1, 0, 0)))
-    scene = sb.build().to(cuda_device)
+    scene = sb.build(device=cuda_device)
     cam, _ = _lit_sphere(cuda_device, (16, 16))
     before = tck.LAUNCHES
     with pytest.warns(UserWarning, match="cluster"):
@@ -292,8 +362,16 @@ class _GuardedTorch:
                    for b, s in self.buffers)
 
 
+TRACE_INSTANCES = {   # (scene, loop): all four trace kernel instances
+    "trace": ("specular", None),
+    "trace_mt": ("specular", "mt"),
+    "trace_plucker_diffuse": ("cornell", "plucker"),
+    "trace_mt_diffuse": ("cornell", "mt"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["trace", "cluster", "beam"])
+@pytest.mark.parametrize("kernel", [*TRACE_INSTANCES, "cluster", "beam"])
 def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
     """Every buffer a wrapper allocates, the kernel's outputs among them,
     sits between guard margins that must come back untouched; a second
@@ -301,14 +379,16 @@ def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
     CUDA sanitizer tools do not run on every machine with a card; this
     test does."""
     guard = _GuardedTorch()
-    if kernel == "trace":
-        cam, scene = _on(cuda_device, "specular", (64, 48))
+    if kernel in TRACE_INSTANCES:
+        name, loop = TRACE_INSTANCES[kernel]
+        cam, scene = _on(cuda_device, name, (64, 48))
         module = ttk
 
         def run():
-            return ttk.render_sum_cuda(cam, scene, 0, 4, 5, h0=17, band_h=13)
+            return ttk.render_sum_cuda(cam, scene, 0, 4, 5, h0=17, band_h=13,
+                                       loop=loop)
     elif kernel == "cluster":
-        _, host = _lit_sphere("cpu", (8, 8))
+        _, host = _lit_sphere(cuda_device, (8, 8))
         cs = tpt.build_clusters(host, max_tris=16).to(cuda_device)
         gen = torch.Generator().manual_seed(2)
         o = (torch.rand((1000, 3), generator=gen) * 400 + 50).to(cuda_device)

@@ -39,7 +39,7 @@ def test_modified_cornell_matches_the_reference_image():
     # [k r - half, k r + half) and columns [k c + half, k c + k + half).
     blocks = golden[half:-half, half:-half].reshape(
         RES - 1, k, RES - 1, k, 3).mean(axis=(1, 3))
-    cam, scene = tpt.modified_cornell(0.05, res=(RES, RES))
+    cam, scene = tpt.modified_cornell(0.05, res=(RES, RES), device="cpu")
     film = tpt.render_film(cam, scene, SPP, 5, backend="brute")
     img = np.minimum(film.data.numpy().astype(np.float64)[::-1], 1.0)
     img = img[1:, :RES - 1]

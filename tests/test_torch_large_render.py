@@ -51,7 +51,8 @@ def test_auto_backend_on_the_cpu():
     assert scene.padded_size <= BRUTE_MAX
     assert _auto_backend(cam, scene) == "brute"
     cam, scene = lit_sphere(tpt, (8, 8))                  # 392 + 12 tris
-    big = tpt.meshes.mesh_garden(grid=1)[1].build()
+    big = tpt.meshes.mesh_garden(grid=1, device="cpu")[1].build(
+        device="cpu")
     assert big.padded_size > BRUTE_MAX
     assert _auto_backend(cam, big) == "bvh"
     film = tpt.render_film(cam, big, 1, 2)
@@ -68,21 +69,22 @@ def on_mock_cuda(monkeypatch):
 
 
 def test_auto_backend_on_cuda_picks_the_kernels(on_mock_cuda):
-    cam, small = tpt.cornell_box(res=(8, 8))
+    cam, small = tpt.cornell_box(res=(8, 8), device="cpu")
     assert _auto_backend(cam, small) == "cuda"
-    big = tpt.meshes.mesh_garden(grid=1)[1].build()
+    big = tpt.meshes.mesh_garden(grid=1, device="cpu")[1].build(
+        device="cpu")
     assert _auto_backend(cam, big) == "beam"
 
 
 def test_auto_backend_on_cuda_falls_back_to_cluster(on_mock_cuda):
     """A non-EMIT emissive material has no beam encoding: auto takes the
     cluster kernel and says so, as the JAX package does."""
-    sb = tpt.meshes.mesh_garden(grid=1)[1]
+    sb = tpt.meshes.mesh_garden(grid=1, device="cpu")[1]
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                     tpt.HostMaterial(tpt.DIFFUSE, color=(1, 1, 1),
                                      emit=(1, 0, 0)))
-    big = sb.build()
-    cam, _ = tpt.cornell_box(res=(8, 8))
+    big = sb.build(device="cpu")
+    cam, _ = tpt.cornell_box(res=(8, 8), device="cpu")
     with pytest.warns(UserWarning, match="cluster"):
         assert _auto_backend(cam, big) == "cluster"
     with pytest.raises(ValueError, match="non-EMIT"):
@@ -90,6 +92,6 @@ def test_auto_backend_on_cuda_falls_back_to_cluster(on_mock_cuda):
 
 
 def test_unknown_backend_raises():
-    cam, scene = tpt.cornell_box(res=(8, 8))
+    cam, scene = tpt.cornell_box(res=(8, 8), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tpt.render_film(cam, scene, 1, 1, backend="pallas")

@@ -52,7 +52,7 @@ def test_auto_backend_rules():
     sb = tpt.SceneBuilder()
     for i in range(trender.BRUTE_MAX + 1):
         sb.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), tpt.Diffuse(1))
-    big = sb.build()
+    big = sb.build(device="cpu")
     # Above BRUTE_MAX a CPU scene takes the per-ray BVH traversal.
     assert trender._auto_backend(cam, big) == "bvh"
     assert torch.equal(tpt.render_film(cam, big, 1, 1).data,

@@ -30,7 +30,7 @@ FIXTURES = {
 def test_fixture_scene_arrays_equal(name):
     jfn, tfn, args = FIXTURES[name]
     jcam, jscene = jfn(*args, res=(32, 24))
-    tcam, tscene = tfn(*args, res=(32, 24))
+    tcam, tscene = tfn(*args, res=(32, 24), device="cpu")
     for f in SCENE_FIELDS:
         np.testing.assert_array_equal(as_np(getattr(tscene, f)),
                                       np.asarray(getattr(jscene, f)), f)
@@ -55,17 +55,18 @@ def test_scene_builder_padding_and_errors():
     for i in range(9):
         sb.add_triangle((i, 0, 0), (i + 1, 0, 0), (i, 1, 0), tpt.Diffuse(0.5))
     assert len(sb) == 9
-    scene = sb.build()
+    scene = sb.build(device="cpu")
     assert scene.padded_size == 16 and scene.num_tris == 9
     assert not scene.has_specular
     assert int(scene.mat_type[9:].abs().sum()) == 0
     assert tpt.SceneBuilder().add_triangle(
         (0, 0, 0), (1, 0, 0), (0, 1, 0),
-        tpt.Specular(0.1)).build(pad_to_multiple=4).padded_size == 4
+        tpt.Specular(0.1)).build(pad_to_multiple=4,
+                                 device="cpu").padded_size == 4
 
 
 def test_scene_to_keeps_host_caches():
-    _, scene = tpt.cornell_box(res=(8, 8))
+    _, scene = tpt.cornell_box(res=(8, 8), device="cpu")
     moved = scene.to("cpu")
     assert moved.device.type == "cpu"
     assert moved.host_verts()[0] is not None
@@ -81,7 +82,7 @@ def test_scene_to_keeps_host_caches():
 def test_convert_carries_jax_scene_unchanged():
     jcam, jscene = jpt.modified_cornell(0.3, res=(16, 16))
     cam, scene = carry(jcam, jscene)
-    tcam, tscene = tpt.modified_cornell(0.3, res=(16, 16))
+    tcam, tscene = tpt.modified_cornell(0.3, res=(16, 16), device="cpu")
     for f in SCENE_FIELDS:
         assert torch.equal(getattr(scene, f), getattr(tscene, f)), f
     for f in CAMERA_FIELDS:
@@ -91,7 +92,8 @@ def test_convert_carries_jax_scene_unchanged():
 
 def test_make_camera_rejects_parallel_up():
     with pytest.raises(ValueError):
-        tpt.make_camera((0, 0, 0), (0, 1, 0), (0, 1, 0), (8, 8), 1.0)
+        tpt.make_camera((0, 0, 0), (0, 1, 0), (0, 1, 0), (8, 8), 1.0,
+                        device="cpu")
 
 
 @pytest.mark.parametrize("offset", [0.5, 0.0])
@@ -101,7 +103,7 @@ def test_get_rays_match(offset):
                                pixel_offset=offset)
     tcam = tcamera.make_camera((278, 278, -500), (0, 0, 1), (0, 1, 0),
                                (48, 32), 60 * math.pi / 180, 1.0,
-                               pixel_offset=offset)
+                               pixel_offset=offset, device="cpu")
     rng = np.random.default_rng(8)
     w = np.broadcast_to(np.arange(48, dtype=np.int32)[None], (32, 48))
     h = np.broadcast_to(np.arange(32, dtype=np.int32)[:, None], (32, 48))
@@ -117,7 +119,7 @@ def test_get_rays_match(offset):
 @pytest.mark.parametrize("direction", range(6))
 def test_rotate_and_move_match(direction):
     jcam, _ = jpt.cornell_box(res=(8, 8))
-    tcam, _ = tpt.cornell_box(res=(8, 8))
+    tcam, _ = tpt.cornell_box(res=(8, 8), device="cpu")
     jr = jcamera.rotate(jcam, direction, 0.3)
     tr = tcamera.rotate(tcam, direction, 0.3)
     jm = jcamera.move(jcam, direction, 7.5)

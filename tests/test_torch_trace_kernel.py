@@ -97,7 +97,7 @@ def _emissive_diffuse_scene():
     sb.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0),
                     tpt.HostMaterial(tpt.DIFFUSE, color=(1, 1, 1),
                                      emit=(1, 0, 0)))
-    return sb.build()
+    return sb.build(device="cpu")
 
 
 def test_packed_table_rejects_emissive_non_emit():
