@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of pathtracer_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 Phases, each printed as it runs; any failure raises and the exit code is
 not 0:
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles csrc/*.cu with nvcc for sm_90a, prints the time and
-     the registers, stack and spill of every kernel instance, and, from
-     cuobjdump's SASS, the instructions of each trace-kernel instance's
-     triangle loop per test;
+  2. build: compiles csrc/*.cu with nvcc for sm_90a (with --parent-csrc,
+     an older checkout's beam_kernel.cu and cluster_kernel.cu at the same
+     time), prints the time and the registers, stack and spill of every
+     kernel instance, and, from cuobjdump's SASS, the instructions of each
+     trace-kernel instance's triangle loop per test and of each beam and
+     cluster instance's tree-walk loop per node;
   3. the megakernel against its plain PyTorch version on the card, both
      loops ("mt" and "plucker"): bit-identical (max abs 0) on the corner,
      Cornell and specular scenes at 64^2, 4 spp, depth 5; per loop a band
@@ -29,27 +31,36 @@ not 0:
      spp reference configurations (bars 112 s and 230 s);
   6. the cluster kernel against its plain version on sphere_in_box(50, 100)
      (9,812 triangles): 65,536 camera rays of the 512^2 film and 65,536
-     random rays, t within rtol 1e-6, tid equal except at near-ties, the
-     same hits with the ray sort, and backend="cluster" against
-     backend="bvh" at 64^2;
-  7. the beam kernel against its plain version on the lit sphere scene, the
-     Cornell box, the specular Cornell box and two 70-material (inline)
-     scenes, one with specular quads (all four kernel instances), at 64^2
-     and 200x72, depth 1 and 5, a band of tiles against the same tiles of a
-     full launch (bit for bit), a window split over two calls (atol 1e-6),
-     and the emission check;
+     random rays, t and tid bit-identical, with and without the ray sort;
+     a triangle duplicated into two clusters, where the kernel must return
+     the lower packed row as the plain argmin does; backend="cluster"
+     against backend="bvh" at 64^2;
+  7. the beam kernel against its plain version, bit for bit, on the lit
+     sphere scene, the Cornell box, the specular Cornell box and two
+     70-material (inline) scenes, one with specular quads (all four kernel
+     instances), at 64^2 and 200x72, depth 1 and 5, and on the duplicated
+     triangle; a band of tiles against the same tiles of a full launch
+     (bit for bit), a window split over two calls (atol 1e-6), and the
+     emission check;
   8. the large-scene main path: render() through backend="auto" on
      sphere_in_box(50, 100) and mesh_garden() (105,708 triangles) at 512^2,
      which must launch the beam kernel; both films against the JAX
      package's converged renders in docs/; for each, the kernel at the main
-     path's launch shape against its plain version on two bands of tiles;
-     one backend="cluster" render;
-  9. timing: the beam and cluster kernels against their plain versions, the
-     cluster kernel on the garden's clusters (a slice of its 2^20 rays held
-     against the plain version), each with its bound from the boxes and
-     rows these rays need (count_work), and the ray segments/s of the beam
-     and cluster renders at 512^2, depth 5, and the cluster render without
-     the ray sort (the default) and with it, off/on/on/off;
+     path's launch shape against its plain version on two bands of tiles,
+     bit for bit; one backend="cluster" render;
+  9. timing: the beam kernel at the main path's launch shape (the 512^2
+     padded film, 25 spp, depth 5: one launch) on both scenes, with its
+     bound from the boxes and rows these rays need (count_work at 512^2
+     over 2 spp on the sphere and 1 on the garden, scaled to the launch's
+     samples), and its plain version at 128^2, 4 spp; the cluster kernel
+     per 2^20 camera rays of both scenes (a slice held against the plain
+     version) with its bound; the ray segments/s of the beam and cluster
+     renders at 512^2, depth 5, and the cluster render without the ray
+     sort (the default) and with it, off/on/on/off.  With --parent-csrc
+     DIR, the older kernels (DIR/beam_kernel.cu, DIR/cluster_kernel.cu,
+     built beside this checkout's, driven by copies of their wrappers) are
+     timed beside these in the order older, new, new, older: the beam
+     launch, the cluster call and both renders of each scene;
 then one JSON line on the kernels (each with its launches on its main
 path, its error against its plain version, its time, the plain version's,
 its bound: the operations these inputs need over the card's published
@@ -57,6 +68,7 @@ fp32 rate) and, last, the device line.  The renders and a JSON record of
 the run go to build/chip_smoke/ (git-ignored).
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -89,8 +101,6 @@ FP32_OPS_PER_S = 67e12
 
 # Large scenes (phases 6-9).
 CLUSTER_RAYS = 1 << 16   # camera rays, and as many random rays, in phase 6
-CLUSTER_T_RTOL = 1e-6
-TIE_RTOL = 1e-5          # nearest hits closer than this may swap ids
 LARGE_RES = (512, 512)
 SPHERE_SPP = 64          # main-path renders of phase 8
 GARDEN_SPP = 2048        # as the committed render
@@ -111,6 +121,14 @@ HELD_CLUSTER_RAYS = 1 << 15  # of those, held against the plain version
 TIME_BEAM_RES = (128, 128)   # the plain beam version takes about 1 s here
 TIME_BEAM_SPP = 4
 TIME_RENDER_SPP = {"sphere9812": (16, 4), "garden105708": (8, 2)}
+# The beam bound at the main launch shape is counted over these samples at
+# 512^2 (the plain version tests every row: ~1 min on the garden a sample)
+# and scaled to the launch's.
+COUNT_SPP = {"sphere9812": 2, "garden105708": 1}
+BEAM_LAUNCH_CALLS = 2        # back-to-back launches per timed run
+# The older kernels of an A/B (--parent-csrc): the sources built, and the
+# argument types of their entry points.
+PARENT_SOURCES = ("beam_kernel.cu", "cluster_kernel.cu")
 
 
 def check(cond, msg):
@@ -165,6 +183,74 @@ def trace_instance(name):
             + ("diffuse", "specular")[int(m.group(1))])
 
 
+def instance_label(name):
+    """'plucker/specular', 'beam/specular/inline' or 'cluster/shared' for a
+    mangled kernel instance name, else the name."""
+    import re
+    trace = trace_instance(name)
+    if trace:
+        return trace
+    m = re.search(r"beam_kernelILb([01])ELb([01])E", name)
+    if m:
+        return ("beam/" + ("diffuse", "specular")[int(m.group(1))] + "/"
+                + ("table", "inline")[int(m.group(2))])
+    m = re.search(r"cluster_kernelILb([01])E", name)
+    if m:
+        return "cluster/" + ("global", "shared")[int(m.group(1))]
+    return name
+
+
+LARGE_INSTANCES = ("beam/diffuse/table", "beam/diffuse/inline",
+                   "beam/specular/table", "beam/specular/inline",
+                   "cluster/global", "cluster/shared")
+
+
+def _sass_functions(text):
+    """[(mangled name, [(address, instruction)])] of cuobjdump's SASS."""
+    import re
+    out = []
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        code = [(int(a, 16), op.strip()) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
+        out.append((chunk.split("\n", 1)[0].strip(), code))
+    return out
+
+
+def _loops(code):
+    """The bodies of the backward branches of a function's SASS."""
+    import re
+    index = {a: i for i, (a, _) in enumerate(code)}
+    for i, (a, op) in enumerate(code):
+        m = re.search(r"\bBRA 0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in index:
+            yield [o for _, o in code[index[int(m.group(1), 16)]:i + 1]]
+
+
+def sass_walk_loops(text):
+    """{instance: {...}} for each beam and cluster instance in cuobjdump's
+    SASS ``text``: the tree walk's node loop is the smallest loop with the
+    node's three 128-bit loads (its children's indices take one 64-bit
+    load), the slab tests' min/max and no reciprocal; its instructions test
+    two boxes.  Also the function's local-memory instructions."""
+    import re
+    out = {}
+    for name, code in _sass_functions(text):
+        inst = instance_label(name)
+        if inst not in LARGE_INSTANCES:
+            continue
+        walks = [len(body) for body in _loops(code)
+                 if sum(bool(re.search(r"\bLD[SG]\S*\.128", o))
+                        for o in body) >= 3
+                 and sum("FMNMX" in o for o in body) >= 12
+                 and not any("MUFU.RCP" in o for o in body)]
+        out[inst] = {
+            "node_loop_instructions": min(walks) if walks else None,
+            "function_instructions": len(code),
+            "local_memory": sum(bool(re.search(r"\b(STL|LDL)", o))
+                                for _, o in code)}
+    return out
+
+
 def sass_triangle_loops(text):
     """{instance: {...}} for each trace-kernel instance in cuobjdump's SASS
     ``text``: the innermost loop that holds row loads (LDS.128) and
@@ -173,21 +259,15 @@ def sass_triangle_loops(text):
     instructions of the whole function."""
     import re
     out = {}
-    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
-        inst = trace_instance(chunk.split("\n", 1)[0])
+    for name, code in _sass_functions(text):
+        inst = trace_instance(name)
         if inst is None:
             continue
-        code = [(int(a, 16), op.strip()) for a, op in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)]
-        index = {a: i for i, (a, _) in enumerate(code)}
         loops = []
-        for i, (a, op) in enumerate(code):
-            m = re.search(r"\bBRA 0x([0-9a-f]+)", op)
-            if m and int(m.group(1), 16) < a:
-                body = [o for _, o in code[index[int(m.group(1), 16)]:i + 1]]
-                loads = sum("LDS.128" in o for o in body)
-                if loads and any("MUFU.RCP" in o for o in body):
-                    loops.append((len(body), loads, body))
+        for body in _loops(code):
+            loads = sum("LDS.128" in o for o in body)
+            if loads and any("MUFU.RCP" in o for o in body):
+                loops.append((len(body), loads, body))
         n, loads, body = min(loops)
         per_row = 3 if inst.startswith("mt") else 5
         rows = loads // per_row
@@ -237,25 +317,49 @@ def with_res(cam, res):
     return dataclasses.replace(cam, res=tuple(res))
 
 
-def tie_gaps(ray_o, ray_d, rows, idx):
-    """Relative gap between the two nearest hits of the rays ``idx`` against
-    the packed rows (dense, plain PyTorch)."""
+def tie_scene(pt, dev, res=(64, 64)):
+    """One triangle twice, red (scene triangle 0) and green (2), under a
+    light, in the two leaves of a hand-made BVH: leaf 0 holds the red copy
+    and the light, leaf 1 the green copy and a small triangle in front of
+    it, so a walk enters leaf 1 first.  Every ray that hits the triangle
+    ties exactly (the same row bits); the plain versions' argmin takes the
+    lower packed row, the red copy's.  Returns (camera, scene, bvh); cut
+    with max_tris=1 (clusters) or sc_tris=1 (beam), each leaf is a cluster
+    or a supercluster of its own."""
+    import numpy as np
     import torch
-    from pathtracer_tpu_torch.linalg import FLOAT_INF
-    from pathtracer_tpu_torch.ops.intersect import _mt
-    tri = rows[:, :9]
-    t, ok = _mt(ray_o[idx, None, :], ray_d[idx, None, :], tri[:, 0:3],
-                tri[:, 3:6], tri[:, 6:9])
-    two = torch.where(ok, t, FLOAT_INF).topk(2, dim=1, largest=False).values
-    return (two[:, 1] - two[:, 0]) / two[:, 0]
+    tri = ((-5, -5, 10), (5, -5, 10), (0, 5, 10))
+    sb = pt.SceneBuilder()
+    sb.add_triangle(*tri, pt.Diffuse(0.8, 0.1, 0.1))
+    sb.add_triangle((-10, 8, 8), (10, 8, 8), (0, 8, 12), pt.Emit(4))
+    sb.add_triangle(*tri, pt.Diffuse(0.1, 0.8, 0.1))
+    sb.add_triangle((6, -2, 3), (8, -2, 3), (7, 0, 3),
+                    pt.Diffuse(0.5, 0.5, 0.5))
+    scene = sb.build(device=dev)
+    v = np.stack([a[:4] for a in scene.host_verts()], 1)
+    lo, hi = v.min(1), v.max(1)
+    nodes = ([0, 1, 2, 3], [0, 1], [2, 3])    # the root, then its leaves
+
+    def ints(a):
+        return torch.tensor(a, dtype=torch.int32)
+
+    bvh = pt.FlatBVH(
+        lb=torch.from_numpy(np.stack([lo[n].min(0) for n in nodes])),
+        rt=torch.from_numpy(np.stack([hi[n].max(0) for n in nodes])),
+        left=ints([1, -1, -1]), right=ints([2, -1, -1]),
+        tri_start=ints([0, 0, 2]), tri_end=ints([3, 1, 3]),
+        tri_idx=ints([0, 1, 2, 3]), max_leaf=2, depth=2)
+    cam = pt.make_camera((0, 0, -10), (0, 0, 1), (0, 1, 0), res, 0.9,
+                         device=dev)
+    return cam, scene, bvh
 
 
 def hold_clusters(name, o, d, cs_d, n_ref):
     """The cluster kernel on the whole ray batch, without (the default) and
     with the ray sort, held against the plain version on its first
-    ``n_ref`` rays: the same hit mask, t within CLUSTER_T_RTOL, tid equal
-    but at near-ties; the sorted launch must give the unsorted one's t on
-    every ray.  Returns (largest |t| difference on hits, record)."""
+    ``n_ref`` rays: t and tid bit for bit; the sorted launch must give the
+    unsorted one's t and tid on every ray.  Returns (largest |t|
+    difference on hits, record)."""
     import torch
     from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
 
@@ -266,33 +370,47 @@ def hold_clusters(name, o, d, cs_d, n_ref):
     check(bool(torch.isfinite(t_k).all()), f"{name}: non-finite t")
     hit = tid_p >= 0
     t_s, tid_s = t_k[:n_ref], tid_k[:n_ref]
-    check(bool(((tid_s >= 0) == hit).all()), f"{name}: hit masks differ")
-    rel = ((t_s - t_p).abs() / t_p.abs())[hit]
-    worst = float(rel.max()) if hit.any() else 0.0
-    check(worst <= CLUSTER_T_RTOL, f"{name}: t differs by {worst:.3e} "
-          f"relative")
     max_err = float((t_s - t_p)[hit].abs().max()) if hit.any() else 0.0
-    bit_equal = float((t_s == t_p).float().mean())
-    differ = torch.nonzero(tid_s != tid_p).squeeze(1)
-    if differ.numel():
-        gaps = tie_gaps(o, d, cs_d.tri_data, differ)
-        check(bool((gaps <= TIE_RTOL).all()),
-              f"{name}: tid differs away from a near-tie")
-    check(bool(torch.equal(t_u, t_k)), f"{name}: the ray sort changed t")
-    sorted_differ = torch.nonzero(tid_u != tid_k).squeeze(1)
-    if sorted_differ.numel():
-        gaps = tie_gaps(o, d, cs_d.tri_data, sorted_differ)
-        check(bool((gaps <= TIE_RTOL).all()),
-              f"{name}: the ray sort changed a hit away from a near-tie")
+    t_equal = float((t_s == t_p).float().mean())
+    tid_equal = float((tid_s == tid_p).float().mean())
     print(f"{name} rays: {int(hit.sum())} of {n_ref} held against the plain "
-          f"version hit, t bit-equal {bit_equal:.4%}, max rel diff "
-          f"{worst:.3e}, tid differs at {differ.numel()} (near-ties); "
-          f"with the ray sort, on all {o.shape[0]} rays: t equal, tid "
-          f"differs at {sorted_differ.numel()}", flush=True)
+          f"version hit, t bit-equal {t_equal:.4%}, tid equal "
+          f"{tid_equal:.4%}, max abs t diff {max_err:.3e}; with the ray "
+          f"sort, on all {o.shape[0]} rays: t equal "
+          f"{bool(torch.equal(t_u, t_k))}, tid equal "
+          f"{bool(torch.equal(tid_u, tid_k))}", flush=True)
+    check(torch.equal(t_s, t_p) and torch.equal(tid_s, tid_p),
+          f"{name}: t or tid differ from the plain version")
+    check(torch.equal(t_u, t_k) and torch.equal(tid_u, tid_k),
+          f"{name}: the ray sort changed a hit")
     return max_err, {"rays": o.shape[0], "held": n_ref,
-                     "hits": int(hit.sum()), "t_bit_equal": bit_equal,
-                     "t_max_rel": worst, "tid_differs": differ.numel(),
-                     "sorted_tid_differs": sorted_differ.numel()}
+                     "hits": int(hit.sum()), "t_bit_equal": t_equal,
+                     "tid_equal": tid_equal}
+
+
+def hold_cluster_tie(pt, dev):
+    """The tie scene's camera rays through the cluster kernel: the rays
+    that hit the duplicated triangle must return the red copy, the lower
+    packed row, as the plain version does.  Returns the record."""
+    import torch
+    from pathtracer_tpu_torch.camera import get_rays
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+
+    cam, scene, bvh = tie_scene(pt, dev)
+    cs = pt.build_clusters(scene, bvh=bvh, max_tris=1).to(dev)
+    check(cs.num_clusters == 2, f"tie scene: {cs.num_clusters} clusters")
+    n = cam.width * cam.height
+    idx = torch.arange(n, device=dev)
+    half = torch.full((n,), 0.5, device=dev)
+    o, d = get_rays(cam, idx % cam.width, idx // cam.width, half, half)
+    err, rec = hold_clusters("tie", o.contiguous(), d.contiguous(), cs, n)
+    _, tid = ck.intersect_clusters(o, d, cs)
+    red, green = int((tid == 0).sum()), int((tid == 2).sum())
+    print(f"tie: {red} rays return the red copy (the lower row), {green} "
+          f"the green one", flush=True)
+    check(red > 0 and green == 0, "tie: not the lower packed row")
+    rec.update(red=red, green=green)
+    return err, rec
 
 
 def phase_cluster(pt, dev, record):
@@ -330,6 +448,8 @@ def phase_cluster(pt, dev, record):
     for name, (o, d) in rays.items():
         err, out[name] = hold_clusters(name, o, d, cs_d, n)
         max_err = max(max_err, err)
+    err, out["tie"] = hold_cluster_tie(pt, dev)
+    max_err = max(max_err, err)
 
     cam64 = lit_sphere_camera(pt, (64, 64))
     f_cl = pt.render_film(cam64, scene, 2, 3, bvh=cs, backend="cluster")
@@ -345,6 +465,26 @@ def phase_cluster(pt, dev, record):
     out["film"] = {"max_abs": film_max, "share": share}
     record["cluster"] = out
     return max_err
+
+
+def hold_beam(key, cam, scene, spp, depth, accel=None):
+    """The beam kernel's film against its plain version's, bit for bit.
+    Returns the record."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+
+    got = bk.render_sum_beam(cam, scene, 0, spp, depth, accel=accel) / spp
+    want = bk.render_sum_beam_reference(cam, scene, 0, spp, depth,
+                                        accel=accel) / spp
+    torch.cuda.synchronize()
+    diff, share = film_diff(got, want)
+    equal = float((got == want).float().mean())
+    print(f"{key}: max abs diff {diff:.3e}, bit-equal values {equal:.4%}, "
+          f"mean {float(got.mean()):.5f}", flush=True)
+    check(float(got.mean()) > 0.0, f"{key}: black film")
+    check(torch.equal(got, want), f"{key}: not bit-identical to the plain "
+          f"version")
+    return {"max_abs": diff, "share": share, "bit_equal": equal}
 
 
 def phase_beam(pt, dev, record):
@@ -382,23 +522,21 @@ def phase_beam(pt, dev, record):
                   and accel.mats_inline == name.startswith("inline"),
                   f"{name}: not the kernel instance it stands for")
             for depth in (1, DEPTH):
-                got = bk.render_sum_beam(cam, scene, 0, spp, depth) / spp
-                want = bk.render_sum_beam_reference(cam, scene, 0, spp,
-                                                    depth) / spp
-                torch.cuda.synchronize()
-                diff, share = film_diff(got, want)
-                equal = float((got == want).float().mean())
                 key = f"{name} {res[0]}x{res[1]} depth {depth}"
-                print(f"{key}: max abs diff {diff:.3e}, pixels beyond "
-                      f"{FILM_ATOL}: {share:.4%}, bit-equal values "
-                      f"{equal:.4%}, mean {float(got.mean()):.5f}",
-                      flush=True)
-                check(float(got.mean()) > 0.0, f"{key}: black film")
-                check(share <= MAX_FLIP_SHARE,
-                      f"{key}: {share:.4%} of pixels beyond {FILM_ATOL}")
-                max_abs = max(max_abs, diff)
-                out[key] = {"max_abs": diff, "share": share,
-                            "bit_equal": equal}
+                out[key] = hold_beam(key, cam, scene, spp, depth)
+                max_abs = max(max_abs, out[key]["max_abs"])
+
+    cam, scene, bvh = tie_scene(pt, dev)
+    accel = pt.build_beam_accel(scene, bvh=bvh, sc_tris=1)
+    check(accel.num_superclusters == 2, "tie scene: not two superclusters")
+    key = f"tie 64x64 depth {DEPTH}"
+    out[key] = hold_beam(key, cam, scene, spp, DEPTH, accel=accel)
+    max_abs = max(max_abs, out[key]["max_abs"])
+    rgb = bk.render_sum_beam(cam, scene, 0, spp, DEPTH,
+                             accel=accel).mean(dim=(0, 1))
+    print(f"tie: mean rgb {[round(float(c), 5) for c in rgb]}: the red copy "
+          f"(the lower row) is the one seen", flush=True)
+    check(float(rgb[0]) > float(rgb[1]), "tie: not the red copy")
 
     cam, scene = scenes["sphere9812"]((200, 72))
     full = bk.render_tiles_beam(cam, scene, 0, 4, DEPTH)
@@ -462,10 +600,9 @@ def hold_main_path_bands(pt, cam, scene, spp):
         lit = max(lit, float(got.mean()))
         key = f"tiles [{tile0}, {tile0 + BAND_TILES})"
         print(f"  {key}, {spp_call} spp (one main-path launch), kernel vs "
-              f"plain: max abs diff {diff:.3e}, pixels beyond {FILM_ATOL}: "
-              f"{share:.4%}, bit-equal values {equal:.4%}", flush=True)
-        check(share <= MAX_FLIP_SHARE,
-              f"{key}: {share:.4%} of pixels beyond {FILM_ATOL}")
+              f"plain: max abs diff {diff:.3e}, bit-equal values "
+              f"{equal:.4%}", flush=True)
+        check(torch.equal(got, want), f"{key}: not bit-identical")
         worst = max(worst, diff)
         out[key] = {"spp": spp_call, "max_abs": diff, "share": share,
                     "bit_equal": equal}
@@ -566,11 +703,178 @@ def phase_large(pt, dev, record):
     return beam_launches, cluster_launches, band_err
 
 
-def phase_timing(pt, dev, card, record):
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def parent_library(csrc):
+    """The older checkout's beam and cluster kernels (``csrc``/
+    PARENT_SOURCES, with its own common.cuh), built as this checkout's are,
+    with the argument types of their entry points."""
+    import ctypes
+    from pathtracer_tpu_torch.utils import build
+
+    lib = build.load_library(csrc, "libparent_large", PARENT_SOURCES)
+    lib.pt_beam_render.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.pt_beam_render.restype = ctypes.c_int
+    lib.pt_cluster_intersect.argtypes = ([ctypes.c_void_p] * 8
+                                         + [ctypes.c_int] * 3
+                                         + [ctypes.c_void_p])
+    lib.pt_cluster_intersect.restype = ctypes.c_int
+    return lib
+
+
+def parent_tiles_beam(lib, camera, scene, sample0, samples, depth=DEPTH, *,
+                      seed=None, accel=None, spp_per_call=None, tile0=0,
+                      n_tiles=None):
+    """``render_tiles_beam`` as the older wrapper drove the older kernel,
+    which loops over every supercluster box in its per-octant ``sc_order``.
+    """
+    import torch
+    from pathtracer_tpu_torch import rng as prng
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+
+    seed = prng.SEED if seed is None else seed
+    tile0, n_tiles = bk._band(camera, tile0, n_tiles)
+    if spp_per_call is None:
+        spp_per_call = bk._default_spp_per_call(camera, samples, depth)
+    dev = scene.device
+    accel = bk._accel_for(scene) if accel is None else accel.to(dev)
+    cam = bk._camera_params(camera)
+    film = torch.zeros((3, n_tiles * bk.TILE_PX), dtype=torch.float32,
+                       device=dev)
+    wp, _ = bk._padded_res(*camera.res)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s = 0
+    while s < samples:
+        spp = min(spp_per_call, samples - s)
+        err = lib.pt_beam_render(
+            cam.data_ptr(), accel.sc_bounds.data_ptr(),
+            accel.sc_first.data_ptr(), accel.sc_ncl.data_ptr(),
+            accel.sc_order.data_ptr(), accel.mats.data_ptr(),
+            accel.cl_bounds.data_ptr(), accel.tri_cols.data_ptr(),
+            film.data_ptr(), None, accel.num_superclusters, accel.ctris,
+            n_tiles, camera.height, wp // 64, tile0,
+            (sample0 + s) & prng.MASK, spp, depth,
+            (int(seed) * prng.SEED_MIX) & prng.MASK, int(scene.has_specular),
+            int(accel.mats_inline), dev.index or 0, stream)
+        check(err == 0, f"older beam kernel: cudaError {err}")
+        s += spp
+    return film
+
+
+def parent_intersect_clusters(lib, ray_o, ray_d, cs):
+    """``intersect_clusters`` as the older wrapper drove the older kernel
+    (without the optional ray sort): each block of 256 rays tests every
+    cluster box, in its order by distance from the block's mean origin,
+    which the wrapper sorts on every call."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    Rp = -(-R // ck.BLOCK_RAYS) * ck.BLOCK_RAYS
+    if Rp != R:
+        pad_o = (cs.scene_bounds[1] + 1.0).expand(Rp - R, 3)
+        pad_d = torch.zeros((Rp - R, 3), dtype=torch.float32, device=dev)
+        pad_d[:, 0] = 1.0
+        ray_o = torch.cat([ray_o, pad_o])
+        ray_d = torch.cat([ray_d, pad_d])
+    origin = ray_o.reshape(-1, ck.BLOCK_RAYS, 3).mean(dim=1)
+    centers = cs.centers
+    d2 = ((origin * origin).sum(-1)[:, None] - 2.0 * (origin @ centers.T)
+          + (centers * centers).sum(-1)[None, :])
+    order = torch.argsort(d2, dim=1).to(torch.int32).contiguous()
+    planes = torch.cat([ray_o.T, ray_d.T]).contiguous()
+    t = torch.empty(Rp, dtype=torch.float32, device=dev)
+    slot = torch.empty(Rp, dtype=torch.int32, device=dev)
+    err = lib.pt_cluster_intersect(
+        planes.data_ptr(), cs.tri_data.data_ptr(), cs.bounds.data_ptr(),
+        cs.start.data_ptr(), cs.count.data_ptr(), order.data_ptr(),
+        t.data_ptr(), slot.data_ptr(), Rp, cs.num_clusters, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"older cluster kernel: cudaError {err}")
+    tid = torch.where(slot >= 0, cs.tid_map[slot.clamp_min(0).long()], -1)
+    return t[:R], tid[:R].to(torch.int32)
+
+
+def alternate(fns, calls, parent):
+    """{key: [ms, ...]} of device_ms over ``fns`` {"new": fn[, "older":
+    fn]}: with an older version, in the order older, new, new, older."""
+    from pathtracer_tpu_torch.utils.timer import device_ms
+    order = ("older", "new", "new", "older") if parent else ("new",)
+    runs = {k: [] for k in order}
+    for key in order:
+        runs[key].extend(device_ms(fns[key], calls=calls)[1])
+    return runs
+
+
+def time_beam_launch(pt, name, cam, scene, card, parent):
+    """The beam kernel at the main path's launch shape: the whole padded
+    512^2 film, one launch of the first window's samples (25 at depth 5);
+    with ``parent``, beside the older kernel, older/new/new/older.  Its
+    bound counts the work at 512^2 over COUNT_SPP[name] samples, scaled to
+    the launch's.  Returns the record."""
+    import statistics
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+
+    spp = bk._default_spp_per_call(cam, GARDEN_SPP, DEPTH)
+    # The accel is passed in, so that its host build and the per-call hash
+    # of the scene's bytes stay out of the kernel's time.
+    accel = bk._accel_for(scene)
+    films = {}
+    fns = {"new": lambda: films.__setitem__(
+        "new", bk.render_tiles_beam(cam, scene, 0, spp, DEPTH, accel=accel))}
+    if parent:
+        fns["older"] = lambda: films.__setitem__(
+            "older", parent_tiles_beam(parent, cam, scene, 0, spp, DEPTH,
+                                       accel=accel))
+    runs = alternate(fns, BEAM_LAUNCH_CALLS, parent)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(films["new"]).all())
+          and float(films["new"].mean()) > 0.0, f"{name}: bad launch film")
+    ms = statistics.median(runs["new"])
+    count_spp = COUNT_SPP[name]
+    work = bk.count_work(cam, scene, 0, count_spp, DEPTH)
+    bound = bound_ms(work["ops"] * spp / count_spp)
+    live = work["live_segments"]
+    rec = {"spp": spp, "ms": ms, "runs": runs, "work": work,
+           "count_spp": count_spp, "bound_ms": bound, "share": bound / ms}
+    older = ""
+    if parent:
+        rec["older_ms"] = statistics.median(runs["older"])
+        rec["older_equal_values"] = float(
+            (films["older"] == films["new"]).float().mean())
+        older = (f"; older kernel {rec['older_ms']:.3f} ms, "
+                 f"{rec['older_ms'] / ms:.2f}x (bit-equal film values "
+                 f"{rec['older_equal_values']:.4%})")
+    print(f"{card}: {name} beam kernel, {cam.width}x{cam.height}, {spp} spp, "
+          f"depth {DEPTH}, one launch: {ms:.3f} ms (runs {runs}){older}; "
+          f"bound from {count_spp} spp x {spp / count_spp:g}: {live} live "
+          f"segments open {work['sc_box_tests'] / live:.3f} supercluster and "
+          f"{work['cluster_box_tests'] / live:.3f} cluster boxes and test "
+          f"{work['rows'] / live:.3f} rows each, {work['ops']:.4e} "
+          f"operations, {bound:.4f} ms, {bound / ms:.2%} of it reached",
+          flush=True)
+    return rec
+
+
+def phase_timing(pt, dev, card, record, parent=None):
     """Phase 9; returns {kernel: (ms, plain_ms, bound_ms)} and, under
-    "cluster_err",
-    the largest |t| difference of the garden's and the sphere's held
-    rays."""
+    "cluster_err", the largest |t| difference of the garden's and the
+    sphere's held rays.  ``parent``: the older kernels' library, timed
+    beside the new ones."""
     import numpy as np
     import torch
     from pathtracer_tpu_torch.camera import get_rays
@@ -578,85 +882,77 @@ def phase_timing(pt, dev, card, record):
     from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
     from pathtracer_tpu_torch.utils.timer import device_ms
 
-    print("== 9 timing", flush=True)
-    out = {}
-    cluster_err = 0.0
-    cam_d, sb = pt.meshes.sphere_in_box(50, 100)
-    scene = scene_d = sb.build()
+    print("== 9 timing" + (", beside the older kernels" if parent else ""),
+          flush=True)
+    out = {"beam": {}, "cluster": {}, "renders": {}}
+    scenes = {}
+    for name, (cam, sb) in (("sphere9812", pt.meshes.sphere_in_box(50, 100)),
+                            ("garden105708", pt.meshes.mesh_garden())):
+        scenes[name] = (cam, sb.build())
+        out["beam"][name] = time_beam_launch(pt, name, *scenes[name], card,
+                                             parent)
 
-    cam_t = with_res(cam_d, TIME_BEAM_RES)
+    cam, scene = scenes["sphere9812"]
+    cam_t = with_res(cam, TIME_BEAM_RES)
     res = {}
     plain_ms, plain_all = device_ms(lambda: res.__setitem__(
-        "p", bk.render_sum_beam_reference(cam_t, scene_d, 0, TIME_BEAM_SPP,
+        "p", bk.render_sum_beam_reference(cam_t, scene, 0, TIME_BEAM_SPP,
                                           DEPTH)), calls=1)
-    beam_ms, beam_all = device_ms(lambda: res.__setitem__(
-        "k", bk.render_sum_beam(cam_t, scene_d, 0, TIME_BEAM_SPP, DEPTH)),
+    small_ms, small_all = device_ms(lambda: res.__setitem__(
+        "k", bk.render_sum_beam(cam_t, scene, 0, TIME_BEAM_SPP, DEPTH)),
         calls=KERNEL_CALLS)
-    diff, share = film_diff(res["k"], res["p"])
-    check(share <= MAX_FLIP_SHARE, f"beam timing shape: {share:.4%}")
-    print(f"{card}: beam kernel {beam_ms:.3f} ms (runs {beam_all}), plain "
-          f"version {plain_ms:.3f} ms (runs {plain_all}) per call at "
-          f"{TIME_BEAM_RES[0]}x{TIME_BEAM_RES[1]}, {TIME_BEAM_SPP} spp, "
-          f"depth {DEPTH}; max abs diff {diff:.3e}", flush=True)
-    work = bk.count_work(cam_t, scene_d, 0, TIME_BEAM_SPP, DEPTH)
-    beam_bound = bound_ms(work["ops"])
-    print(f"beam bound: {work['live_segments']} live segments test "
-          f"{work['sc_box_tests']} supercluster and "
-          f"{work['cluster_box_tests']} cluster boxes and {work['rows']} "
-          f"rows ({work['rows'] / work['live_segments']:.2f} per segment): "
-          f"{work['ops']:.4e} operations, {beam_bound:.4f} ms, "
-          f"{beam_bound / beam_ms:.2%} of it reached", flush=True)
-    out["beam"] = {"ms": beam_ms, "plain_ms": plain_ms, "runs": beam_all,
-                   "plain_runs": plain_all, "work": work,
-                   "bound_ms": beam_bound}
+    check(torch.equal(res["k"], res["p"]), "beam at 128^2: not bit-identical")
+    print(f"{card}: sphere9812 beam at {TIME_BEAM_RES[0]}x{TIME_BEAM_RES[1]}, "
+          f"{TIME_BEAM_SPP} spp, depth {DEPTH} (8 tiles, 64 blocks): plain "
+          f"version {plain_ms:.3f} ms (runs {plain_all}), kernel "
+          f"{small_ms:.3f} ms (runs {small_all}), bit-identical", flush=True)
+    out["beam"]["sphere9812 128^2"] = {
+        "spp": TIME_BEAM_SPP, "ms": small_ms, "runs": small_all,
+        "plain_ms": plain_ms, "plain_runs": plain_all}
+    main = out["beam"]["sphere9812"]
+    beam_times = (main["ms"], plain_ms, main["bound_ms"])
 
-    gcam_d, gsb = pt.meshes.mesh_garden()
-    gscene = gscene_d = gsb.build()
     gen = np.random.default_rng(9)
     n = TIME_CLUSTER_RAYS
-    out["cluster"] = {}
-    for name, c, s in (("sphere9812", cam_d, scene),
-                       ("garden105708", gcam_d, gscene)):
+    cluster_err = 0.0
+    for name, (c, s) in scenes.items():
         w = torch.from_numpy(gen.integers(0, LARGE_RES[0], n)).to(dev)
         h = torch.from_numpy(gen.integers(0, LARGE_RES[1], n)).to(dev)
         u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
         o, d = get_rays(c, w, h, u[0], u[1])
         o, d = o.contiguous(), d.contiguous()
         cs = pt.build_clusters(s).to(dev)
-        err, held = hold_clusters(f"{name} ({cs.num_clusters} clusters) "
-                                  f"camera", o, d, cs, HELD_CLUSTER_RAYS)
+        err, held = hold_clusters(f"{name} ({cs.num_clusters} clusters, "
+                                  f"tree depth {cs.tree_depth}) camera", o,
+                                  d, cs, HELD_CLUSTER_RAYS)
         cluster_err = max(cluster_err, err)
-        work = ck.count_work(o, d, cs, ck.intersect_clusters(o, d, cs)[0])
+        work = ck.count_work(o, d, cs, *ck.intersect_clusters(o, d, cs))
         bound = bound_ms(work["ops"])
-        fns = [("unsorted", lambda: ck.intersect_clusters(o, d, cs)),
-               ("sorted", lambda: ck.intersect_clusters(o, d, cs,
-                                                        sort_rays=True))]
+        fns = {"new": lambda: ck.intersect_clusters(o, d, cs)}
+        if parent:
+            fns["older"] = lambda: parent_intersect_clusters(parent, o, d, cs)
+        cl = alternate(fns, 4, parent)
+        cl["sorted"] = device_ms(lambda: ck.intersect_clusters(
+            o, d, cs, sort_rays=True), calls=4)[1]
         if name == "sphere9812":    # the garden's would take about 30 s
-            fns.append(("plain",
-                        lambda: ck.intersect_clusters_reference(o, d, cs)))
-        cl = {key: device_ms(fn, calls=1 if key == "plain" else 4)
-              for key, fn in fns}
-        plain = (f"; plain version {cl['plain'][0]:.3f} ms"
-                 if "plain" in cl else "")
-        print(f"{card}: cluster kernel per 2^20 camera rays of {name} "
-              f"({cs.num_clusters} clusters): {cl['unsorted'][0]:.3f} ms "
-              f"without the ray sort (the default), {cl['sorted'][0]:.3f} ms "
-              f"with it{plain}; bound: {work['box_tests']} box tests and "
-              f"{work['rows']} rows, {work['ops']:.4e} operations, "
-              f"{bound:.4f} ms, {bound / cl['unsorted'][0]:.2%} of it "
-              f"reached", flush=True)
-        out["cluster"][name] = {k: {"ms": v[0], "runs": v[1]}
-                                for k, v in cl.items()}
-        out["cluster"][name].update(held=held, work=work, bound_ms=bound)
+            cl["plain"] = device_ms(
+                lambda: ck.intersect_clusters_reference(o, d, cs),
+                calls=1)[1]
+        med = {k: float(np.median(v)) for k, v in cl.items()}
+        extra = "".join(f", {k} {v:.3f} ms" for k, v in med.items()
+                        if k != "new")
+        print(f"{card}: cluster kernel per 2^20 camera rays of {name}: "
+              f"{med['new']:.3f} ms (runs {cl['new']}){extra}; bound: "
+              f"{work['box_tests'] / n:.3f} boxes and {work['rows'] / n:.3f} "
+              f"rows a ray, {work['ops']:.4e} operations, {bound:.4f} ms, "
+              f"{bound / med['new']:.2%} of it reached", flush=True)
+        out["cluster"][name] = {"runs": cl, "ms": med, "held": held,
+                                "work": work, "bound_ms": bound}
         if name == "sphere9812":
-            times = (cl["unsorted"][0], cl["plain"][0], bound)
+            cluster_times = (med["new"], med["plain"], bound)
 
-    renders = {"sphere9812": (cam_d, scene_d, scene),
-               "garden105708": (gcam_d, gscene_d, gscene)}
-    out["renders"] = {}
     unsorted = ck.intersect_clusters
-    for name, (c, s, host) in renders.items():
-        bk._accel_for(s)            # host build outside the timed calls
+    for name, (c, s) in scenes.items():
         beam_spp, cluster_spp = TIME_RENDER_SPP[name]
         segs = {"beam": LARGE_RES[0] * LARGE_RES[1] * beam_spp * DEPTH,
                 "cluster": LARGE_RES[0] * LARGE_RES[1] * cluster_spp * DEPTH}
@@ -669,53 +965,86 @@ def phase_timing(pt, dev, card, record):
                   f"{rate:.4e} ray segments/s", flush=True)
             out["renders"][f"{name} {backend}"] = {
                 "spp": spp, "ms": ms, "runs": runs, "segments_per_s": rate}
-        # The cluster render without the kernel's ray sort (the default)
-        # and with it, off/on/on/off, with the cluster set built once so
-        # that the host build's noise stays out of the comparison.
-        cs = pt.build_clusters(host).to(dev)
+        # With the cluster set built once, so that the host build's noise
+        # stays out of the comparisons: the older kernels against the new
+        # ones, then the cluster render without the kernel's ray sort (the
+        # default) and with it, off/on/on/off.
+        cs = pt.build_clusters(s).to(dev)
+
+        def beam_render():
+            pt.render_film(c, s, beam_spp, DEPTH, backend="beam")
+
+        def cluster_render():
+            pt.render_film(c, s, cluster_spp, DEPTH, backend="cluster",
+                           bvh=cs)
+
+        if parent:
+            for backend, spp, fn, module, attr, older in (
+                    ("beam", beam_spp, beam_render, bk, "render_tiles_beam",
+                     functools.partial(parent_tiles_beam, parent)),
+                    ("cluster", cluster_spp, cluster_render, ck,
+                     "intersect_clusters",
+                     functools.partial(parent_intersect_clusters, parent))):
+                runs = {"older": [], "new": []}
+                for key in ("older", "new", "new", "older"):
+                    with swapped(module, attr, older if key == "older"
+                                 else getattr(module, attr)):
+                        runs[key].append(device_ms(fn, calls=1)[0])
+                rates = {k: [segs[backend] / ms * 1e3 for ms in v]
+                         for k, v in runs.items()}
+                print(f"{card}: {name} {backend} render 512^2, {spp} spp, "
+                      f"depth {DEPTH}, older/new ms per render {runs}, ray "
+                      f"segments/s {rates}", flush=True)
+                out["renders"][f"{name} {backend} older/new"] = {
+                    "ms": runs, "segments_per_s": rates}
         ab = []
         for sort in (False, True, True, False):
-            ck.intersect_clusters = (functools.partial(
-                unsorted, sort_rays=True) if sort else unsorted)
-            try:
-                ab.append(device_ms(lambda: pt.render_film(
-                    c, s, cluster_spp, DEPTH, backend="cluster", bvh=cs),
-                    calls=1)[0])
-            finally:
-                ck.intersect_clusters = unsorted
+            with swapped(ck, "intersect_clusters", functools.partial(
+                    unsorted, sort_rays=True) if sort else unsorted):
+                ab.append(device_ms(cluster_render, calls=1)[0])
         print(f"{card}: {name} cluster 512^2, {cluster_spp} spp, depth "
               f"{DEPTH}, cluster set built once, ms per render without/with/"
               f"with/without the ray sort: {ab}", flush=True)
         out["renders"][f"{name} cluster sort off/on/on/off"] = ab
-    tests = bk.count_tri_tests(cam_d, scene_d, samples=8, depth=DEPTH)
+    tests = bk.count_tri_tests(cam, scene, samples=8, depth=DEPTH)
     print(f"sphere9812 512^2: {tests:.2f} triangle rows tested per ray "
           f"segment (beam kernel, per ray)", flush=True)
     out["sphere9812_tri_tests_per_segment"] = tests
     record["large_timing"] = out
-    return {"beam_kernel": (beam_ms, plain_ms, beam_bound),
-            "cluster_kernel": times, "cluster_err": cluster_err}
+    return {"beam_kernel": beam_times, "cluster_kernel": cluster_times,
+            "cluster_err": cluster_err}
 
 
-def phase_build(record):
-    """Phase 2; returns {trace instance: (registers, stack, spill)} and the
-    SASS figures of the trace kernel's triangle loops."""
+def phase_build(record, parent_csrc=None):
+    """Phase 2; returns {trace instance: (registers, stack, spill)}, the
+    SASS figures of the trace kernel's triangle loops and, with
+    ``parent_csrc``, the older kernels' library (built at the same time)."""
+    from concurrent.futures import ThreadPoolExecutor
     from pathtracer_tpu_torch.utils import build
 
     print("== 2 build", flush=True)
-    built = build.build_library()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(build.build_library)]
+        if parent_csrc:
+            jobs.append(pool.submit(build.build_library, parent_csrc,
+                                    "libparent_large", PARENT_SOURCES))
+        builds = [job.result() for job in jobs]
+    built = builds[0]
     build.load_library()
     print(f"built {os.path.relpath(built.path, REPO)} in "
           f"{built.seconds:.2f} s", flush=True)
     table = ptxas_table(built.log)
-    check(len(table) >= 10, f"ptxas reported {len(table)} kernel instances")
-    for name, (regs, stack, spill) in sorted(table.items()):
-        label = trace_instance(name) or name
+    labels = {instance_label(k): v for k, v in table.items()}
+    check(all(k in labels for k in LARGE_INSTANCES) and len(table) >= 10,
+          f"ptxas reported the instances {sorted(labels)}")
+    for label, (regs, stack, spill) in sorted(labels.items()):
         print(f"  {label}: {regs} registers, {stack} bytes stack frame, "
               f"{spill} bytes spill stores", flush=True)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = sass_triangle_loops(subprocess.run(
+    text = subprocess.run(
         [cuobjdump, "-sass", str(built.path)], capture_output=True,
-        text=True, check=True, timeout=120).stdout)
+        text=True, check=True, timeout=120).stdout
+    sass = sass_triangle_loops(text)
     check(len(sass) == 4, f"SASS of {len(sass)} trace kernel instances")
     for inst, fig in sorted(sass.items()):
         print(f"  {inst} SASS: triangle loop {fig['loop_instructions']} "
@@ -724,13 +1053,27 @@ def phase_build(record):
               f"{fig['loop_calls']} calls in it; the function: "
               f"{fig['mufu']} MUFU, {fig['local_memory']} local-memory "
               f"instructions", flush=True)
+    walks = sass_walk_loops(text)
+    for inst, fig in sorted(walks.items()):
+        print(f"  {inst} SASS: tree-walk node loop "
+              f"{fig['node_loop_instructions']} instructions (two box "
+              f"tests); the function: {fig['function_instructions']} "
+              f"instructions, {fig['local_memory']} local-memory", flush=True)
+    record["build"] = {"seconds": built.seconds, "ptxas": labels,
+                       "sass": sass, "walk_sass": walks}
+    parent = None
+    if parent_csrc:
+        older = {instance_label(k): v
+                 for k, v in ptxas_table(builds[1].log).items()}
+        print(f"older kernels ({parent_csrc}) built in "
+              f"{builds[1].seconds:.2f} s: " + "; ".join(
+                  f"{k}: {r} registers, {st} bytes stack, {sp} bytes spill"
+                  for k, (r, st, sp) in sorted(older.items())), flush=True)
+        record["build"]["older_ptxas"] = older
+        parent = parent_library(parent_csrc)
     regs = {trace_instance(k): v for k, v in table.items()
             if trace_instance(k)}
-    record["build"] = {"seconds": built.seconds,
-                       "ptxas": {trace_instance(k) or k: v
-                                 for k, v in table.items()},
-                       "sass": sass}
-    return regs, sass
+    return regs, sass, parent
 
 
 def phase_parity(pt, dev, record):
@@ -948,7 +1291,14 @@ def phase_trace_timing(pt, card, regs, sass, record):
 
 
 def main():
+    import argparse
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", metavar="DIR",
+                    help="an older checkout's csrc/: time its beam and "
+                         "cluster kernels beside these in phase 9")
+    args = ap.parse_args()
 
     print("== 1 device", flush=True)
     check(torch.cuda.is_available(),
@@ -968,7 +1318,7 @@ def main():
 
     record = {"card": card}
     os.makedirs(OUT_DIR, exist_ok=True)
-    regs, sass = phase_build(record)
+    regs, sass, parent = phase_build(record, args.parent_csrc)
     phase_parity(pt, dev, record)
     launches = phase_main(pt, dev, record)
     trace = phase_trace_timing(pt, card, regs, sass, record)
@@ -976,7 +1326,7 @@ def main():
     beam_err = phase_beam(pt, dev, record)
     beam_launches, cluster_launches, band_err = phase_large(pt, dev, record)
     beam_err = max(beam_err, band_err)
-    times = phase_timing(pt, dev, card, record)
+    times = phase_timing(pt, dev, card, record, parent)
     cluster_err = max(cluster_err, times["cluster_err"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -13,7 +13,10 @@ of ``pathtracer_tpu/clusters.py``.
   color).  ``ops/cuda/beam_kernel.py`` traverses it.
 
 Both builders are host numpy work and produce the JAX package's arrays
-exactly; the accels hold CPU tensors and move with ``.to(device)``.
+exactly; the accels hold CPU tensors and move with ``.to(device)``.  Each
+also keeps the BVH nodes above its cut (clusters, superclusters) as a box
+tree (``_box_tree``), which the CUDA kernels walk in place of a loop over
+every leaf box; the JAX package has no such array.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def _to(obj, fields, device):
         obj, **{f: getattr(obj, f).to(device) for f in fields})
 
 
-_CLUSTER_FIELDS = ("tri_data", "tid_map", "start", "count", "bounds")
+_CLUSTER_FIELDS = ("tri_data", "tid_map", "start", "count", "bounds", "tree")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,14 +62,18 @@ class ClusterSet:
     tid_map:  (P,) int32 scene triangle id of each row (-1 on padding).
     start, count: (C,) int32 first row and row count of each cluster.
     bounds:   (C, 8) float32 [lb(3), rt(3), 0, 0] cluster AABBs.
+    tree:     (C - 1, 16) float32 the BVH above the cut, whose leaves are
+        the clusters (``_box_tree``), with ``tree_depth`` levels.
     """
     tri_data: torch.Tensor
     tid_map: torch.Tensor
     start: torch.Tensor
     count: torch.Tensor
     bounds: torch.Tensor
+    tree: torch.Tensor
     num_clusters: int
     max_count: int
+    tree_depth: int
 
     @property
     def device(self) -> torch.device:
@@ -91,8 +98,10 @@ def _bvh_host(scene: Scene, bvh: Optional[FlatBVH]):
     return _host_arrays(bvh if bvh is not None else build_bvh(scene))
 
 
-def _cut(node, limit, left, right, s_arr, e_arr):
-    """Subtree ranges of <= limit triangles in DFS order: [(s, e, node)]."""
+def _cut(node, limit, left, right, s_arr, e_arr, expanded=None):
+    """Subtree ranges of <= limit triangles in DFS order: [(s, e, node)].
+    ``expanded``, a list, receives the BVH nodes above the cut, in DFS
+    order."""
     out = []
     stack = [node]
     while stack:
@@ -101,10 +110,52 @@ def _cut(node, limit, left, right, s_arr, e_arr):
         if left[ni] == -1 or cnt <= limit:
             out.append((int(s_arr[ni]), int(e_arr[ni]), ni))
         else:
+            if expanded is not None:
+                expanded.append(ni)
             # the right child first, so the left one is popped first
             stack.append(int(right[ni]))
             stack.append(int(left[ni]))
     return out
+
+
+def _box_tree(expanded, cut_nodes, left, right, leaf_bounds):
+    """The BVH above a cut as a node array for the kernels' tree walk.
+
+    ``expanded``: the BVH nodes above the cut in DFS order (the root first);
+    ``cut_nodes``: the BVH node of each leaf, in leaf order; ``leaf_bounds``
+    (L, >= 6) the leaves' [lb, rt] boxes.  Returns (tree (N, 16) float32,
+    depth): node i holds both children's boxes, [lb0(3), rt0(3), lb1(3),
+    rt1(3)], then the two children as int32 bit patterns in columns 12 and
+    13 (an internal node's index, or ``-1 - leaf``), then two zeros.  Node
+    boxes are unions of the leaf boxes, so each child box lies inside its
+    parent's.  ``depth``: internal nodes on the longest root-to-leaf path
+    (0 when the root is itself a leaf, and the tree has no node), the stack
+    entries a near-child-first walk needs at most."""
+    index = {int(ni): i for i, ni in enumerate(expanded)}
+    index.update({int(ni): -1 - j for j, ni in enumerate(cut_nodes)})
+    n = len(expanded)
+    tree = np.zeros((n, 16), np.float32)
+    kids = tree.view(np.int32)
+    boxes = np.zeros((n, 6), np.float32)
+    leaf_bounds = np.asarray(leaf_bounds, np.float32)[:, :6]
+
+    def box(child):
+        return leaf_bounds[-1 - child] if child < 0 else boxes[child]
+
+    for i in range(n - 1, -1, -1):   # children come after their parent
+        ni = expanded[i]
+        c0, c1 = index[int(left[ni])], index[int(right[ni])]
+        b0, b1 = box(c0), box(c1)
+        tree[i, 0:6], tree[i, 6:12] = b0, b1
+        kids[i, 12], kids[i, 13] = c0, c1
+        boxes[i] = np.concatenate([np.minimum(b0[:3], b1[:3]),
+                                   np.maximum(b0[3:], b1[3:])])
+    levels = np.zeros(n, np.int64)
+    for i in range(n):
+        for c in kids[i, 12:14]:
+            if c >= 0:
+                levels[c] = levels[i] + 1
+    return tree, int(levels.max()) + 1 if n else 0
 
 
 def build_clusters(scene: Scene, bvh: Optional[FlatBVH] = None,
@@ -114,7 +165,8 @@ def build_clusters(scene: Scene, bvh: Optional[FlatBVH] = None,
     bound).  CPU tensors."""
     lb_arr, rt_arr, left, right, s_arr, e_arr, tri_idx = _bvh_host(scene,
                                                                    bvh)
-    ranges = _cut(0, max_tris, left, right, s_arr, e_arr)
+    expanded = []
+    ranges = _cut(0, max_tris, left, right, s_arr, e_arr, expanded)
     n = scene.num_tris
     v1, v2, v3 = scene.host_verts()
     C = len(ranges)
@@ -136,15 +188,18 @@ def build_clusters(scene: Scene, bvh: Optional[FlatBVH] = None,
     tri_data[:n, 0:3] = v1[order]
     tri_data[:n, 3:6] = v2[order] - v1[order]
     tri_data[:n, 6:9] = v3[order] - v1[order]
+    tree, depth = _box_tree(expanded, [ni for _, _, ni in ranges], left,
+                            right, bounds)
     return ClusterSet(
         tri_data=torch.from_numpy(tri_data), tid_map=torch.from_numpy(tid_map),
         start=torch.from_numpy(starts), count=torch.from_numpy(counts),
-        bounds=torch.from_numpy(bounds), num_clusters=C,
-        max_count=int(counts.max()) if C else 0)
+        bounds=torch.from_numpy(bounds), tree=torch.from_numpy(tree),
+        num_clusters=C, max_count=int(counts.max()) if C else 0,
+        tree_depth=depth)
 
 
 _BEAM_FIELDS = ("tri_cols", "tid_map", "cl_bounds", "sc_bounds", "sc_first",
-                "sc_ncl", "sc_order", "mats")
+                "sc_ncl", "sc_order", "mats", "sc_tree")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,10 +218,17 @@ class BeamAccel:
     sc_bounds: (S_pad, 8) float32 supercluster AABBs, padded the same way.
     sc_first, sc_ncl: (S,) int32 first cluster and cluster count.
     sc_order: (8, S) int32 per-octant front-to-back supercluster order
-        (ascending projection of the box center on the octant diagonal).
+        (ascending projection of the box center on the octant diagonal),
+        the JAX builder's array; no kernel of the port reads it.
     mats: (M, 8) float32 [color(3), roughness, flags, 0, 0, 0] with color
         the emission for EMIT and the albedo otherwise, flags 2 (EMIT),
         1 (SPECULAR) or 0.
+    sc_tree: (S - 1, 16) float32 the BVH above the supercluster cut, whose
+        leaves are the superclusters (``_box_tree``), with
+        ``sc_tree_depth`` levels; the kernel walks it in place of a loop
+        over ``sc_bounds``.
+    max_edge_product: the largest |e1| |e2| of a row, a bound on the
+        determinant of its Möller–Trumbore test for a unit direction.
     """
     tri_cols: torch.Tensor
     tid_map: torch.Tensor
@@ -176,10 +238,13 @@ class BeamAccel:
     sc_ncl: torch.Tensor
     sc_order: torch.Tensor
     mats: torch.Tensor
+    sc_tree: torch.Tensor
     num_clusters: int
     num_superclusters: int
     num_materials: int
     ctris: int
+    sc_tree_depth: int
+    max_edge_product: float
     mats_inline: bool = False
 
     @property
@@ -248,8 +313,8 @@ def build_beam_accel(scene: Scene, bvh: Optional[FlatBVH] = None,
     v1, v2, v3 = scene.host_verts()
     cent = (v1 + v2 + v3) / 3.0
 
-    def cut(node, limit):
-        return _cut(node, limit, left, right, s_arr, e_arr)
+    def cut(node, limit, expanded=None):
+        return _cut(node, limit, left, right, s_arr, e_arr, expanded)
 
     def split_range(ids, limit):
         if ids.size <= limit:
@@ -265,7 +330,8 @@ def build_beam_accel(scene: Scene, bvh: Optional[FlatBVH] = None,
         sc_tris = BEAM_SC_TRIS
         while len(cut(0, sc_tris)) > MAX_BEAM_SC:
             sc_tris *= 2
-    sc_ranges = cut(0, sc_tris)
+    expanded = []
+    sc_ranges = cut(0, sc_tris, expanded)
     sc_first, sc_ncl = [], []
     chunks = []
     for (s, e, ni) in sc_ranges:
@@ -312,6 +378,9 @@ def build_beam_accel(scene: Scene, bvh: Optional[FlatBVH] = None,
         tri_cols[rows, 9] = mat_id[ids]
     tri_cols[rows, 10:13] = np.cross(e1, e2)
     tid_map[rows] = ids
+    max_edge_product = float(np.max(
+        np.linalg.norm(e1.astype(np.float64), axis=-1)
+        * np.linalg.norm(e2.astype(np.float64), axis=-1)))
 
     # Cluster boxes (min/max are exact, so grouping does not matter), and
     # supercluster boxes as the union of their clusters' boxes.
@@ -335,6 +404,9 @@ def build_beam_accel(scene: Scene, bvh: Optional[FlatBVH] = None,
                          1 if o & 4 else -1], np.float32)
         order[o] = np.argsort(centers @ sign, kind="stable")
 
+    sc_tree, sc_depth = _box_tree(expanded, [ni for _, _, ni in sc_ranges],
+                                  left, right, sc_bounds)
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -342,6 +414,8 @@ def build_beam_accel(scene: Scene, bvh: Optional[FlatBVH] = None,
         tri_cols=t(tri_cols), tid_map=t(tid_map),
         cl_bounds=t(_pad8(cl_bounds)), sc_bounds=t(_pad8(sc_bounds)),
         sc_first=t(scf), sc_ncl=t(scn), sc_order=t(order),
-        mats=t(mat_rows[:MAX_BEAM_MATERIALS]), num_clusters=C,
-        num_superclusters=S, num_materials=min(M, MAX_BEAM_MATERIALS),
-        ctris=ctris, mats_inline=mats_inline)
+        mats=t(mat_rows[:MAX_BEAM_MATERIALS]), sc_tree=t(sc_tree),
+        num_clusters=C, num_superclusters=S,
+        num_materials=min(M, MAX_BEAM_MATERIALS), ctris=ctris,
+        sc_tree_depth=sc_depth, max_edge_product=max_edge_product,
+        mats_inline=mats_inline)

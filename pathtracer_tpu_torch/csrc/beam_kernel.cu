@@ -18,21 +18,27 @@
 // staged windows are its schedule, not part of the result: every test here
 // is exact per ray, so the film is that of any exact nearest-hit traversal
 // (ops/cuda/beam_kernel.py::render_tiles_beam_reference, dense over all
-// rows).  Only an exact tie in t between two rows can resolve differently.
+// rows), ties included: a row replaces the best on a nearer t, or on an
+// equal t with a lower packed row (argmin's first index), and a box opens
+// on tmin <= best_t, so the visit order cannot change the hit.
 //
-// Traversal, per ray: the supercluster boxes (shared memory) front to back
-// in sc_order[octant], the octant taken from the warp's summed camera
-// direction at bounce 0 and from the shared bounce sample after that; a
-// passing supercluster's cluster boxes; a passing cluster's 8 rows.  Every
-// box test is the slab test with tmin < best_t; the row test is
-// Möller–Trumbore with IEEE 1.0f / a and a strict t < best_t.
+// Traversal, per ray segment: a walk of the box tree over the
+// superclusters (ptk::walk_tree: the top of the SAH BVH the accel was cut
+// from, both children's boxes in one 64-byte node, near child first, the
+// far one on a short stack); in each supercluster it enters, the cluster
+// boxes; in each cluster it enters, the 8 rows by Möller–Trumbore with the
+// IEEE reciprocal's fast path (ptk::rcp_in_range: the wrapper refuses rows
+// whose determinant could reach 2^125).
 //
-// What bounds it on this card: fp32 issue in the box and triangle loops and
+// What bounds it on this card: fp32 issue in the box and triangle tests and
 // divergence between the rays of a warp, which pay for the union of their
-// traversals.  Design: one thread per pixel; the small hot tables (at most
-// 1008 supercluster boxes, firsts and counts, about 40 KB) in shared
+// traversals.  Design: one thread per pixel; the tree's nodes (64 B each,
+// at most 64.4 KB), each thread's stack slice (8 B an entry, the tree's
+// depth in entries) and the superclusters' firsts and counts in shared
 // memory; cluster boxes and 64-byte triangle rows read from global memory
-// through L1/L2 with 16-byte loads.
+// through L1/L2 with 16-byte loads.  The walk opens one to two dozen nodes
+// where a loop over every supercluster box tested 117 (sphere9812) to 608
+// (garden105708) boxes a segment.
 //
 // Rounding: shading in the plain version's order, --fmad=false, rsqrtf for
 // the camera ray, the normal and the specular direction as torch.rsqrt.
@@ -46,6 +52,10 @@ namespace {
 
 constexpr int kThreads = 256;       // 2048 % kThreads == 0: a block never
                                     // straddles a tile
+// No register cap: with the block size alone ptxas budgets 64 registers a
+// thread and spilled 28-124 bytes a thread; at one block an SM it takes
+// the 80-84 the kernel needs and spills nothing.
+constexpr int kMinBlocks = 1;
 constexpr int kTileLog2 = 11;       // 2048-pixel tiles
 constexpr int kSquareLog2 = 12;     // 64 x 64 squares
 constexpr uint32_t kTileMix = 0x9E377u;
@@ -59,32 +69,34 @@ __device__ __forceinline__ uint32_t even_bits(uint32_t v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int k = 16; k > 0; k >>= 1) x += __shfl_xor_sync(0xFFFFFFFFu, x, k);
-  return __shfl_sync(0xFFFFFFFFu, x, 0);  // one value for every lane
-}
-
 template <bool kHasSpecular, bool kInline>
-__global__ void __launch_bounds__(kThreads)
-beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_bounds,
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
             const int* __restrict__ sc_first, const int* __restrict__ sc_ncl,
-            const int* __restrict__ sc_order, const float* __restrict__ mats,
+            const float* __restrict__ mats,
             const float* __restrict__ cl_bounds,
             const float* __restrict__ tri_cols, float* __restrict__ film,
-            int* __restrict__ counts, int n_sc, int ctris, int n_pix,
-            int res_y, int nsq_x, int tile0, uint32_t s0, int spp, int depth,
-            uint32_t seed_mix) {
+            int* __restrict__ counts, int n_sc, int tree_depth, int ctris,
+            int n_pix, int res_y, int nsq_x, int tile0, uint32_t s0, int spp,
+            int depth, uint32_t seed_mix) {
+  // Shared memory: the tree's nodes, each thread's stack slice (entry k of
+  // thread x at k * kThreads + x), the superclusters' first clusters and
+  // cluster counts.
   extern __shared__ float4 smem[];
-  float4* s_box = smem;  // 2 float4 per supercluster
-  int* s_first = reinterpret_cast<int*>(smem + 2 * n_sc);
+  const int n_nodes = n_sc - 1;
+  float4* s_node = smem;
+  float2* s_stack = reinterpret_cast<float2*>(smem + 4 * n_nodes);
+  int* s_first = reinterpret_cast<int*>(s_stack + tree_depth * kThreads);
   int* s_ncl = s_first + n_sc;
-  const float4* scb4 = reinterpret_cast<const float4*>(sc_bounds);
-  for (int i = threadIdx.x; i < 2 * n_sc; i += blockDim.x) s_box[i] = scb4[i];
+  const float4* tree4 = reinterpret_cast<const float4*>(sc_tree);
+  for (int i = threadIdx.x; i < 4 * n_nodes; i += blockDim.x)
+    s_node[i] = tree4[i];
   for (int i = threadIdx.x; i < n_sc; i += blockDim.x) {
     s_first[i] = sc_first[i];
     s_ncl[i] = sc_ncl[i];
   }
   __syncthreads();
+  float2* stack = s_stack + threadIdx.x;
 
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   if (local >= n_pix) return;  // never: the launch covers whole tiles
@@ -139,53 +151,41 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_bounds,
     float ox = px, oy = py, oz = pz;
     float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
     float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
-    float sdx = 0.0f, sdy = 0.0f, sdz = 0.0f;  // last shared bounce sample
 
     for (int b = 0; b < depth; ++b) {
       const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-      float mdx = sdx, mdy = sdy, mdz = sdz;
-      if (b == 0) {  // every lane is alive at bounce 0
-        mdx = warp_sum(dx);
-        mdy = warp_sum(dy);
-        mdz = warp_sum(dz);
-      }
-      const int oct = (mdx > 0.0f ? 1 : 0) + (mdy > 0.0f ? 2 : 0) +
-                      (mdz > 0.0f ? 4 : 0);
-      const int* visit = sc_order + oct * n_sc;
 
+      // The supercluster tree, then in each supercluster it enters the
+      // cluster boxes, and in each cluster it enters the cluster's rows.
       float best_t = ptk::kInf;
       int best = -1;
-      for (int k = 0; k < n_sc; ++k) {
-        const int sc = __ldg(visit + k);
-        const float4 a0 = s_box[2 * sc];
-        const float4 a1 = s_box[2 * sc + 1];
-        if (!ptk::slab_hit(a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, ox, oy, oz,
-                           ix, iy, iz, best_t))
-          continue;
-        const int c0 = s_first[sc];
-        const int c1 = c0 + s_ncl[sc];
-        for (int c = c0; c < c1; ++c) {
-          const float4 q0 = __ldg(clb4 + 2 * c);
-          const float4 q1 = __ldg(clb4 + 2 * c + 1);
-          if (!ptk::slab_hit(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ox, oy, oz,
-                             ix, iy, iz, best_t))
-            continue;
-          tests += ctris;
-          const int r0 = c * ctris;
-          for (int j = 0; j < ctris; ++j) {
-            const float4 p0 = __ldg(row4 + 4 * (r0 + j));
-            const float4 p1 = __ldg(row4 + 4 * (r0 + j) + 1);
-            const float4 p2 = __ldg(row4 + 4 * (r0 + j) + 2);
-            const float t = ptk::mt_hit(p0.x, p0.y, p0.z, p0.w, p1.x, p1.y,
-                                        p1.z, p1.w, p2.x, ox, oy, oz, dx, dy,
-                                        dz);
-            if (t < best_t) {
-              best_t = t;
-              best = r0 + j;
+      ptk::walk_tree<false>(
+          s_node, n_nodes, stack, kThreads, ox, oy, oz, ix, iy, iz, best_t,
+          [&](int sc) {
+            const int c1 = s_first[sc] + s_ncl[sc];
+            for (int c = s_first[sc]; c < c1; ++c) {
+              const float4 q0 = __ldg(clb4 + 2 * c);
+              const float4 q1 = __ldg(clb4 + 2 * c + 1);
+              float tmin;
+              if (!ptk::slab_enter(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ox,
+                                   oy, oz, ix, iy, iz, best_t, tmin))
+                continue;
+              tests += ctris;
+              const int r0 = c * ctris;
+              for (int j = 0; j < ctris; ++j) {
+                const float4 p0 = __ldg(row4 + 4 * (r0 + j));
+                const float4 p1 = __ldg(row4 + 4 * (r0 + j) + 1);
+                const float4 p2 = __ldg(row4 + 4 * (r0 + j) + 2);
+                const float t = ptk::mt_hit<true>(
+                    p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w, p2.x, ox,
+                    oy, oz, dx, dy, dz);
+                if (ptk::nearer(t, r0 + j, best_t, best)) {
+                  best_t = t;
+                  best = r0 + j;
+                }
+              }
             }
-          }
-        }
-      }
+          });
       if (best < 0) break;  // miss: the path dies
 
       // Row [.., mat, Nx, Ny | Nz, color(3)]: cols 9..15.
@@ -229,9 +229,9 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_bounds,
       const float xx = 2.0f * tu1 - 1.0f;
       const float ct = sqrtf(fmaxf(1.0f - xx * xx, 0.0f));
       const float phi = ptk::kTwoPi * tu2;
-      sdx = ct * cosf(phi);
-      sdy = ct * sinf(phi);
-      sdz = -xx;
+      const float sdx = ct * cosf(phi);
+      const float sdy = ct * sinf(phi);
+      const float sdz = -xx;
       float ndx = sdx, ndy = sdy, ndz = sdz;
       if (sdx * nx + sdy * ny + sdz * nz < 0.0f) {
         ndx = -ndx;
@@ -293,42 +293,49 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_bounds,
 
 template <bool kHasSpecular, bool kInline>
 cudaError_t launch(int blocks, size_t smem, cudaStream_t st, const float* cam,
-                   const float* sc_bounds, const int* sc_first,
-                   const int* sc_ncl, const int* sc_order, const float* mats,
+                   const float* sc_tree, const int* sc_first,
+                   const int* sc_ncl, const float* mats,
                    const float* cl_bounds, const float* tri_cols, float* film,
-                   int* counts, int n_sc, int ctris, int n_pix, int res_y,
-                   int nsq_x, int tile0, uint32_t s0, int spp, int depth,
-                   uint32_t seed_mix, int device) {
+                   int* counts, int n_sc, int tree_depth, int ctris,
+                   int n_pix, int res_y, int nsq_x, int tile0, uint32_t s0,
+                   int spp, int depth, uint32_t seed_mix, int device) {
   auto kernel = beam_kernel<kHasSpecular, kInline>;
   cudaError_t err = ptk::prepare_smem(kernel, smem, device);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, st>>>(
-      cam, sc_bounds, sc_first, sc_ncl, sc_order, mats, cl_bounds, tri_cols,
-      film, counts, n_sc, ctris, n_pix, res_y, nsq_x, tile0, s0, spp, depth,
-      seed_mix);
+      cam, sc_tree, sc_first, sc_ncl, mats, cl_bounds, tri_cols, film,
+      counts, n_sc, tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp,
+      depth, seed_mix);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The deepest box tree the cluster and beam kernels walk (their stacks'
+// capacity): a wrapper refuses a deeper tree.
+extern "C" int pt_tree_stack_size() { return ptk::kTreeStack; }
+
 // Adds the radiance sums of the samples [s0, s0 + spp) of the `n_tiles`
 // 2048-pixel tiles from `tile0` into `film` (3, n_tiles * 2048), channel
 // planes in device order, and, when `counts` (n_tiles * 2048,) is not null,
 // each pixel's tested triangle rows into `counts`.  The accel arrays are
-// those of clusters.BeamAccel; `mats_inline` selects the inline material
-// columns.  Launches on `stream` of `device` and returns cudaGetLastError()
-// as an int: 0 when the launch was accepted.
-extern "C" int pt_beam_render(const float* cam, const float* sc_bounds,
+// those of clusters.BeamAccel: `sc_tree` the (n_sc - 1, 16) tree over the
+// superclusters, `tree_depth` its depth (at most kTreeStack; 0 for one
+// supercluster); `mats_inline` selects the inline material columns.
+// Launches on `stream` of `device` and returns cudaGetLastError() as an
+// int: 0 when the launch was accepted.
+extern "C" int pt_beam_render(const float* cam, const float* sc_tree,
                               const int* sc_first, const int* sc_ncl,
-                              const int* sc_order, const float* mats,
-                              const float* cl_bounds, const float* tri_cols,
-                              float* film, int* counts, int n_sc, int ctris,
+                              const float* mats, const float* cl_bounds,
+                              const float* tri_cols, float* film, int* counts,
+                              int n_sc, int tree_depth, int ctris,
                               int n_tiles, int res_y, int nsq_x, int tile0,
                               uint32_t s0, int spp, int depth,
                               uint32_t seed_mix, int has_specular,
                               int mats_inline, int device, void* stream) {
-  if (n_sc < 1 || ctris < 1 || n_tiles < 1 || res_y < 1 || nsq_x < 1 ||
-      tile0 < 0 || spp < 0 || depth < 0 ||
+  if (n_sc < 1 || tree_depth < 0 || tree_depth > ptk::kTreeStack ||
+      (n_sc == 1) != (tree_depth == 0) || ctris < 1 || n_tiles < 1 ||
+      res_y < 1 || nsq_x < 1 || tile0 < 0 || spp < 0 || depth < 0 ||
       (static_cast<long long>(tile0) + n_tiles) << kTileLog2 > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -337,13 +344,15 @@ extern "C" int pt_beam_render(const float* cam, const float* sc_bounds,
   const int n_pix = n_tiles << kTileLog2;
   const int blocks = n_pix / kThreads;
   const size_t smem =
-      static_cast<size_t>(n_sc) * (2 * sizeof(float4) + 2 * sizeof(int));
+      static_cast<size_t>(n_sc - 1) * 4 * sizeof(float4) +
+      static_cast<size_t>(tree_depth) * kThreads * sizeof(float2) +
+      static_cast<size_t>(n_sc) * 2 * sizeof(int);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_BEAM_LAUNCH(SPEC, INL)                                            \
-  launch<SPEC, INL>(blocks, smem, st, cam, sc_bounds, sc_first, sc_ncl,      \
-                    sc_order, mats, cl_bounds, tri_cols, film, counts, n_sc, \
-                    ctris, n_pix, res_y, nsq_x, tile0, s0, spp, depth,       \
-                    seed_mix, device)
+#define PT_BEAM_LAUNCH(SPEC, INL)                                         \
+  launch<SPEC, INL>(blocks, smem, st, cam, sc_tree, sc_first, sc_ncl,     \
+                    mats, cl_bounds, tri_cols, film, counts, n_sc,        \
+                    tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp, \
+                    depth, seed_mix, device)
   if (has_specular) {
     err = mats_inline ? PT_BEAM_LAUNCH(true, true)
                       : PT_BEAM_LAUNCH(true, false);

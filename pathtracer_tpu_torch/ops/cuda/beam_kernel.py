@@ -12,13 +12,17 @@ unbiased samples; only the noise between pixels of a tile is correlated.
 Device order: Morton within each 64x64 square, squares row-major; the
 wrapper de-interleaves and crops to (H, W, 3).
 
-What bounds it on this card: fp32 issue in the box and triangle loops, and
+What bounds it on this card: fp32 issue in the box and triangle tests, and
 divergence between the rays of a warp, which pay for the union of their
 traversals.  Design: one thread per pixel with an exact per-ray traversal
-of the two-level ``BeamAccel`` (supercluster boxes in shared memory, front
-to back per octant; cluster boxes; 8-row clusters), so the film is that of
-any exact nearest-hit traversal: the plain version,
-``render_tiles_beam_reference``, tests every packed row densely.
+of the two-level ``BeamAccel``: a walk of its box tree over the
+superclusters (``sc_tree``, in shared memory, near child first), the
+cluster boxes of each supercluster entered, the 8 rows of each cluster
+entered.  Ties go to the lower packed row and a box opens on
+``tmin <= best_t``, so the film is that of any exact nearest-hit
+traversal whatever its visit order: the plain version,
+``render_tiles_beam_reference``, tests every packed row densely.  The
+wrapper raises ``ValueError`` on a tree deeper than the kernel's stack.
 
 On a CUDA scene ``render_tiles_beam`` launches the kernel or raises; it
 takes the plain version only when the scene lies on the CPU.
@@ -41,8 +45,9 @@ from ...linalg import FLOAT_INF, SHIFT_BIAS, dot
 from ...materials import _TWO_PI, SPECULAR_TRIES
 from ...scene import Scene
 from ...utils import build
-from ..intersect import MT_OPS, SLAB_OPS, boxes_entered, intersect_packed
-from .trace_kernel import SHADE_OPS, _camera_params
+from ..intersect import (MOMENT_OPS, PLUCKER_OPS, SLAB_OPS, boxes_entered,
+                         intersect_packed)
+from .trace_kernel import MAX_DET, SHADE_OPS, _camera_params
 
 TILE_PX = 2048        # pixels per tile sharing one bounce stream
 _TILE_LOG2 = 11
@@ -53,7 +58,7 @@ SEGMENTS_PER_CALL = 1 << 25   # default launch size in ray segments
 
 LAUNCHES = 0          # kernel launches since the last reset
 
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -208,8 +213,8 @@ def _one_sample(camera: Camera, cam: torch.Tensor, accel: BeamAccel,
                 has_specular: bool, segments: Optional[list] = None
                 ) -> torch.Tensor:
     """Radiance (3, n) of sample ``sidx`` at the band's pixels, in the
-    kernel's operation order.  ``segments`` receives (o, d, t) of the live
-    rays of every bounce (t = FLOAT_INF on a miss)."""
+    kernel's operation order.  ``segments`` receives (o, d, t, row) of the
+    live rays of every bounce (t = FLOAT_INF and row = -1 on a miss)."""
     n = w.shape[0]
     dev = w.device
     state = prng.sample_seed(w, h, camera.height, sidx, seed)
@@ -235,7 +240,7 @@ def _one_sample(camera: Camera, cam: torch.Tensor, accel: BeamAccel,
             best_t[live] = t_l
             best[live] = row_l
             if segments is not None:
-                segments.append((o[live], d[live], t_l))
+                segments.append((o[live], d[live], t_l, row_l))
         hit_row = rows[best.clamp_min(0)]
         f_mat = torch.where(best >= 0, hit_row[:, 9], -1.0)
         if accel.mats_inline:
@@ -361,13 +366,18 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     if accel.num_superclusters > MAX_BEAM_SC:
         raise ValueError(f"{accel.num_superclusters} superclusters > "
                          f"{MAX_BEAM_SC}; rebuild with larger sc_tris")
+    if accel.max_edge_product * 1.001 >= MAX_DET:
+        # The row test's reciprocal is exact below 2^126 only
+        # (csrc/common.cuh::rcp_in_range), and |a| <= |e1| |e2|.
+        raise ValueError(
+            f"a triangle's edge product reaches {MAX_DET:.3g}: the beam "
+            f"kernel's reciprocal is exact only below it (scale the scene)")
     n_pix = n_tiles * TILE_PX
     cam = _camera_params(camera)
     arrays = [("cam", cam, torch.float32),
-              ("sc_bounds", accel.sc_bounds, torch.float32),
+              ("sc_tree", accel.sc_tree, torch.float32),
               ("sc_first", accel.sc_first, torch.int32),
               ("sc_ncl", accel.sc_ncl, torch.int32),
-              ("sc_order", accel.sc_order, torch.int32),
               ("mats", accel.mats, torch.float32),
               ("cl_bounds", accel.cl_bounds, torch.float32),
               ("tri_cols", accel.tri_cols, torch.float32)]
@@ -383,6 +393,7 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     film = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
 
     lib = build.load_library()
+    build.check_tree_depth(lib, accel.sc_tree_depth, "beam accel")
     fn = lib.pt_beam_render
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -393,13 +404,13 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     s = 0
     while s < samples:
         spp = min(spp_per_call, samples - s)
-        err = fn(cam.data_ptr(), accel.sc_bounds.data_ptr(),
+        err = fn(cam.data_ptr(), accel.sc_tree.data_ptr(),
                  accel.sc_first.data_ptr(), accel.sc_ncl.data_ptr(),
-                 accel.sc_order.data_ptr(), accel.mats.data_ptr(),
-                 accel.cl_bounds.data_ptr(), accel.tri_cols.data_ptr(),
-                 film.data_ptr(),
+                 accel.mats.data_ptr(), accel.cl_bounds.data_ptr(),
+                 accel.tri_cols.data_ptr(), film.data_ptr(),
                  None if counts is None else counts.data_ptr(),
-                 accel.num_superclusters, accel.ctris, n_tiles,
+                 accel.num_superclusters, accel.sc_tree_depth, accel.ctris,
+                 n_tiles,
                  camera.height, wp // _SQ, tile0, (sample0 + s) & prng.MASK,
                  spp, depth, seed_mix, int(scene.has_specular),
                  int(accel.mats_inline), index, stream)
@@ -454,44 +465,46 @@ def count_work(camera: Camera, scene: Scene, sample0: int, samples: int,
                depth: int = 5, *, seed: int = prng.SEED) -> dict:
     """The work a render of the whole film over the samples [sample0,
     sample0 + samples) needs of any exact two-level traversal, from the
-    plain version's live ray segments: every segment tests every
-    supercluster box, the cluster boxes of every supercluster it enters
-    before its nearest hit, and the rows of every cluster it enters before
-    it.  Returns the counts and their operations (SLAB_OPS per box, MT_OPS
-    per row, SHADE_OPS per segment, three divisions per segment for the
-    reciprocal direction)."""
+    plain version's live ray segments.  Each segment opens the supercluster
+    boxes it enters before its nearest hit and the one that holds the hit;
+    in those, the cluster boxes it enters before the hit and the one that
+    holds the hit; and tests the rows of every cluster so counted.  Returns
+    the counts and their operations: SLAB_OPS a box, PLUCKER_OPS a row (the
+    cheaper row test, as the trace kernel's bound counts it), and a
+    segment's MOMENT_OPS, SHADE_OPS and three divisions for the reciprocal
+    direction."""
     accel = _accel_for(scene)
     segments = []
     render_tiles_beam_reference(camera, scene, sample0, samples, depth,
                                 seed=seed, accel=accel, segments=segments)
+    dev = scene.device
     S, C = accel.num_superclusters, accel.num_clusters
-    sc_ncl = accel.sc_ncl.long()
-    cl_sc = torch.repeat_interleave(
-        torch.arange(S, device=scene.device), sc_ncl)
-    # the j-th cluster of supercluster s is row sc_first[s] + j of
-    # cl_bounds
-    cl_rows = (accel.sc_first.long().repeat_interleave(sc_ncl)
-               + torch.arange(int(sc_ncl.sum()), device=scene.device)
-               - torch.repeat_interleave(torch.cumsum(sc_ncl, 0) - sc_ncl,
-                                         sc_ncl))
-    cl_bounds = accel.cl_bounds[cl_rows]
-    live = sc_tests = cl_tests = rows = 0
+    # Clusters are numbered supercluster by supercluster.
+    cl_sc = torch.repeat_interleave(torch.arange(S, device=dev),
+                                    accel.sc_ncl.long())
+    sc_ids = torch.arange(S, device=dev)
+    cl_ids = torch.arange(C, device=dev)
+    live = sc_boxes = cl_boxes = 0
     chunk = max(1, (1 << 22) // max(C, 1))
-    for o_all, d_all, t_all in segments:
+    for o_all, d_all, t_all, row_all in segments:
         live += o_all.shape[0]
         for r0 in range(0, o_all.shape[0], chunk):
             o, d = o_all[r0:r0 + chunk], d_all[r0:r0 + chunk]
             t, inv = t_all[r0:r0 + chunk], 1.0 / d_all[r0:r0 + chunk]
-            sc_in = boxes_entered(o, inv, t, accel.sc_bounds[:S])
-            sc_tests += o.shape[0] * S
-            cl_tests += int((sc_in.to(torch.int64) * sc_ncl).sum())
-            cl_in = boxes_entered(o, inv, t, cl_bounds) & sc_in[:, cl_sc]
-            rows += int(cl_in.sum()) * accel.ctris
-    boxes = sc_tests + cl_tests
-    return {"live_segments": live, "sc_box_tests": sc_tests,
-            "cluster_box_tests": cl_tests, "rows": rows,
-            "ops": (boxes * SLAB_OPS + rows * MT_OPS
-                    + live * (SHADE_OPS + 3))}
+            row = row_all[r0:r0 + chunk]
+            hit_cl = torch.where(row >= 0, row // accel.ctris, -1)
+            hit_sc = torch.where(row >= 0, cl_sc[hit_cl.clamp_min(0)], -1)
+            sc_in = (boxes_entered(o, inv, t, accel.sc_bounds[:S])
+                     | (sc_ids == hit_sc[:, None]))
+            cl_in = ((boxes_entered(o, inv, t, accel.cl_bounds[:C])
+                      & sc_in[:, cl_sc]) | (cl_ids == hit_cl[:, None]))
+            sc_boxes += int(sc_in.sum())
+            cl_boxes += int(cl_in.sum())
+    rows = cl_boxes * accel.ctris
+    return {"live_segments": live, "sc_box_tests": sc_boxes,
+            "cluster_box_tests": cl_boxes, "rows": rows,
+            "ops": ((sc_boxes + cl_boxes) * SLAB_OPS + rows * PLUCKER_OPS
+                    + live * (MOMENT_OPS + SHADE_OPS + 3))}
 
 
 def count_tri_tests(camera: Camera, scene: Scene, samples: int = 8,

@@ -6,13 +6,18 @@ The kernel, ``csrc/cluster_kernel.cu``, replaces
 slab test per cluster box and Möller–Trumbore over the rows of every
 cluster a ray enters.
 
-What bounds it on this card: fp32 issue (every ray tests the boxes of all
-clusters, front to back, and the triangles of the ones it enters) and
-divergence between the rays of a warp.  Design: one thread per ray and a
-block of ``BLOCK_RAYS`` rays in the part of the TPU's ray tile.  The wrapper
-gives each block its clusters in front-to-back order by distance from the
-block's mean origin; the kernel keeps the cluster boxes, starts and counts
-in shared memory when they fit.  On request (``sort_rays=True``) the wrapper
+What bounds it on this card: fp32 issue (the boxes a ray opens and the
+triangles of the clusters it enters) and divergence between the rays of a
+warp.  Design: one thread per ray and a block of ``BLOCK_RAYS`` rays in the
+part of the TPU's ray tile.  Each ray walks the set's box tree (``tree``,
+the top of the SAH BVH the clusters were cut from: both children's boxes in
+a node, near child first, the far one on a short stack) and tests the rows
+of every cluster whose box it enters; ties go to the lower packed row and a
+box opens on ``tmin <= best_t``, so the hit is the plain version's whatever
+the visit order.  The kernel keeps the nodes, starts and counts in shared
+memory when two blocks of them fit an SM.  The wrapper raises
+``ValueError`` on a tree deeper than the kernel's stack.  On request
+(``sort_rays=True``) the wrapper
 first sorts the rays by origin Morton cell and direction octant
 (``_sort_keys``), as the TPU driver does, so a block's rays are coherent.
 On the H100 the sort costs more than it saves, in the kernel call and in
@@ -34,14 +39,15 @@ import torch
 
 from ...clusters import ClusterSet
 from ...utils import build
-from ..intersect import MT_OPS, SLAB_OPS, boxes_entered, intersect_packed
+from ..intersect import (MOMENT_OPS, PLUCKER_OPS, SLAB_OPS, boxes_entered,
+                         intersect_packed)
 
 BLOCK_RAYS = 256      # rays per CUDA block; csrc/cluster_kernel.cu kThreads
 _MORTON_BITS = 6      # per axis: 18-bit cell, 3-bit octant sort keys
 
 LAUNCHES = 0          # kernel launches since the last reset
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _spread3(x: torch.Tensor) -> torch.Tensor:
@@ -91,34 +97,38 @@ def intersect_clusters_reference(ray_o: torch.Tensor, ray_d: torch.Tensor,
 
 
 def count_work(ray_o: torch.Tensor, ray_d: torch.Tensor, cs: ClusterSet,
-               t_hit: torch.Tensor) -> dict:
-    """The work these rays need of any exact cluster traversal: every ray
-    tests every cluster box, and the rows of every cluster it enters before
-    its nearest hit ``t_hit`` (R,).  Returns the box tests, the rows and
-    their operations (SLAB_OPS, MT_OPS each, the reciprocal direction's
-    three divisions per ray)."""
+               t_hit: torch.Tensor, tid_hit: torch.Tensor) -> dict:
+    """The work these rays need of any exact cluster traversal, from their
+    nearest hits (t_hit (R,), scene triangle tid_hit (R,), -1 on a miss):
+    each ray opens the cluster boxes it enters before its hit and the one
+    that holds the hit, and tests the rows of those clusters.  Returns the
+    box tests, the rows and their operations: SLAB_OPS a box, PLUCKER_OPS a
+    row (the cheaper row test, as the trace kernel's bound counts it), and
+    a ray's MOMENT_OPS and three divisions for the reciprocal
+    direction."""
     rays, n = ray_o.shape[0], cs.num_clusters
+    dev = ray_o.device
+    # The cluster of each scene triangle: every triangle is in one cluster.
+    tri_cluster = torch.empty(int(cs.tid_map.shape[0]), dtype=torch.int64,
+                              device=dev)
+    row_cluster = torch.repeat_interleave(torch.arange(n, device=dev),
+                                          cs.count.long())
+    tids = cs.tid_map[:row_cluster.shape[0]].long()
+    tri_cluster[tids] = row_cluster
+    ids = torch.arange(n, device=dev)
     chunk = max(1, (1 << 22) // n)
-    rows = 0
+    boxes = rows = 0
     for r0 in range(0, rays, chunk):
         o, d = ray_o[r0:r0 + chunk], ray_d[r0:r0 + chunk]
-        entered = boxes_entered(o, 1.0 / d, t_hit[r0:r0 + chunk],
-                                cs.bounds[:n])
-        rows += int((entered.to(torch.int64) * cs.count[:n]).sum())
-    boxes = rays * n
+        tid = tid_hit[r0:r0 + chunk].long()
+        own = torch.where(tid >= 0, tri_cluster[tid.clamp_min(0)], -1)
+        opened = (boxes_entered(o, 1.0 / d, t_hit[r0:r0 + chunk],
+                                cs.bounds[:n]) | (ids == own[:, None]))
+        boxes += int(opened.sum())
+        rows += int((opened.to(torch.int64) * cs.count[:n]).sum())
     return {"box_tests": boxes, "rows": rows,
-            "ops": boxes * SLAB_OPS + rows * MT_OPS + 3 * rays}
-
-
-def _block_order(ray_o: torch.Tensor, cs: ClusterSet) -> torch.Tensor:
-    """(n_blocks, C) int32: each block's clusters by ascending squared
-    distance of the box center from the block's mean ray origin."""
-    n_blocks = ray_o.shape[0] // BLOCK_RAYS
-    origin = ray_o.reshape(n_blocks, BLOCK_RAYS, 3).mean(dim=1)
-    centers = cs.centers
-    d2 = ((origin * origin).sum(-1)[:, None] - 2.0 * (origin @ centers.T)
-          + (centers * centers).sum(-1)[None, :])
-    return torch.argsort(d2, dim=1).to(torch.int32).contiguous()
+            "ops": (boxes * SLAB_OPS + rows * PLUCKER_OPS
+                    + rays * (MOMENT_OPS + 3))}
 
 
 def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
@@ -156,14 +166,13 @@ def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
         perm = torch.argsort(_sort_keys(ray_o, ray_d, lb, rt), stable=True)
         ray_o = ray_o[perm]
         ray_d = ray_d[perm]
-    order = _block_order(ray_o, cs)
     planes = torch.cat([ray_o.T, ray_d.T]).contiguous()     # (6, Rp)
     tris = cs.tri_data.contiguous()
-    bounds = cs.bounds.contiguous()
+    tree = cs.tree.contiguous()
     start = cs.start.contiguous()
     count = cs.count.contiguous()
     for name, x, dtype in (("tri_data", tris, torch.float32),
-                           ("bounds", bounds, torch.float32),
+                           ("tree", tree, torch.float32),
                            ("start", start, torch.int32),
                            ("count", count, torch.int32)):
         if x.dtype != dtype:
@@ -172,13 +181,14 @@ def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
     slot = torch.empty(Rp, dtype=torch.int32, device=dev)
 
     lib = build.load_library()
+    build.check_tree_depth(lib, cs.tree_depth, "cluster set")
     fn = lib.pt_cluster_intersect
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    err = fn(planes.data_ptr(), tris.data_ptr(), bounds.data_ptr(),
-             start.data_ptr(), count.data_ptr(), order.data_ptr(),
-             t.data_ptr(), slot.data_ptr(), Rp, cs.num_clusters, index,
+    err = fn(planes.data_ptr(), tris.data_ptr(), tree.data_ptr(),
+             start.data_ptr(), count.data_ptr(), t.data_ptr(),
+             slot.data_ptr(), Rp, cs.num_clusters, cs.tree_depth, index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: "

@@ -10,6 +10,10 @@
   megakernel's ``"plucker"`` loop.
 * ``intersect_packed``: the same test against packed ``[v1, e1, e2]`` rows,
   in chunks of rays: the plain version of the cluster and beam kernels.
+* ``intersect_tree``: the walk of a box tree over clusters that the cluster
+  and beam kernels make (``slab_enter``, the lower row on a tie), for the
+  CPU tests and for counting the nodes a walk opens; it returns what
+  ``intersect_packed`` does.
 * ``intersect_bvh``: per-ray stack traversal of the flat BVH, one masked
   step of all rays with a non-empty stack per loop iteration; the CPU
   oracle for large scenes and the ``"bvh"`` render backend.
@@ -186,14 +190,113 @@ def aabb_hit(ray_o, inv_ray_d, lb, rt):
 
 def boxes_entered(ray_o, inv_ray_d, t_hit, bounds):
     """(R, B) bool: ray r passes the slab test of box b (rows [lb, rt] of
-    ``bounds``) and enters it before its nearest hit ``t_hit`` (R,): the
-    boxes any exact front-to-back traversal has to open.  A NaN slab
-    (0 * inf) rejects here, so the count is never above the kernels'."""
+    ``bounds``) and enters it strictly before its nearest hit ``t_hit``
+    (R,): with the box that holds the hit, the boxes any exact
+    front-to-back traversal has to open.  A NaN slab (0 * inf) rejects
+    here, so the count is never above the kernels'."""
     t1 = (bounds[None, :, 0:3] - ray_o[:, None]) * inv_ray_d[:, None]
     t2 = (bounds[None, :, 3:6] - ray_o[:, None]) * inv_ray_d[:, None]
     tmin = torch.amax(torch.minimum(t1, t2), dim=-1)
     tmax = torch.amin(torch.maximum(t1, t2), dim=-1)
     return (tmax >= 0.0) & (tmin <= tmax) & (tmin < t_hit[:, None])
+
+
+def slab_enter(ray_o, inv_ray_d, lb, rt, best_t):
+    """(opened, tmin) of the kernels' box test, all (..., 3) or (...,):
+    tmax >= 0, tmin <= tmax and tmin <= best_t.  ``fmin``/``fmax`` ignore a
+    NaN slab (0 * inf), as the kernels' ``fminf``/``fmaxf`` do; a box whose
+    face holds the current best is opened, so an exact tie there is seen."""
+    t1 = (lb - ray_o) * inv_ray_d
+    t2 = (rt - ray_o) * inv_ray_d
+    lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+    tmin = torch.fmax(torch.fmax(lo[..., 0], lo[..., 1]), lo[..., 2])
+    tmax = torch.fmin(torch.fmin(hi[..., 0], hi[..., 1]), hi[..., 2])
+    return (tmax >= 0.0) & (tmin <= tmax) & (tmin <= best_t), tmin
+
+
+def intersect_tree(ray_o, ray_d, tree, depth: int, leaf_start, leaf_count,
+                   rows, opened: bool = False):
+    """Nearest hit of flat rays (R, 3) by a walk of a box tree
+    (``clusters._box_tree``) whose leaf ``j`` holds the packed rows
+    [leaf_start[j], leaf_start[j] + leaf_count[j]) of ``rows`` (P, >= 9).
+
+    The kernels' walk, vectorised over rays with a per-ray stack: each loop
+    iteration pops one entry of every ray whose stack is not empty and
+    skips it when its entry distance is beyond the ray's best ``t``; an
+    internal node tests both child boxes (``slab_enter``) and pushes the
+    hit ones, the nearer on top; a leaf tests its rows and keeps a row on
+    ``t < best_t`` or on ``t == best_t`` with a lower row.  So the result
+    is the dense ``intersect_packed``'s (t (R,), row (R,) int64 or -1)
+    whatever the visit order.  ``opened``: also return the internal nodes
+    and the leaves each ray opened, (R,) int64 each."""
+    R, dev = ray_o.shape[0], ray_o.device
+    inv_d = 1.0 / ray_d
+    kids = tree.view(torch.int32)[:, 12:14].long()
+    start, count = leaf_start.long(), leaf_count.long()
+    tri = rows[:, :9]
+    size = depth + 1
+    stack = torch.zeros((R, size), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((R, size), dtype=torch.float32, device=dev)
+    stack[:, 0] = 0 if tree.shape[0] else -1   # the root, or the one leaf
+    stack_t[:, 0] = -FLOAT_INF
+    sp = torch.ones(R, dtype=torch.int64, device=dev)
+    best_t = torch.full((R,), FLOAT_INF, dtype=torch.float32, device=dev)
+    best = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    nodes = torch.zeros(R, dtype=torch.int64, device=dev)
+    leaves = torch.zeros(R, dtype=torch.int64, device=dev)
+    ks = torch.arange(int(count.max()), device=dev)
+    chunk = max(1, (1 << 22) // ks.numel())
+
+    def push(r, entry, t):
+        stack[r, sp[r]] = entry
+        stack_t[r, sp[r]] = t
+        sp[r] += 1
+
+    while True:
+        rays = torch.nonzero(sp > 0).squeeze(1)
+        if rays.numel() == 0:
+            break
+        sp[rays] -= 1
+        entry = stack[rays, sp[rays]]
+        keep = stack_t[rays, sp[rays]] <= best_t[rays]
+        rays, entry = rays[keep], entry[keep]
+
+        inner = entry >= 0
+        r, nd = rays[inner], entry[inner]
+        if r.numel():
+            nodes[r] += 1
+            o, inv, bt = ray_o[r], inv_d[r], best_t[r]
+            h0, t0 = slab_enter(o, inv, tree[nd, 0:3], tree[nd, 3:6], bt)
+            h1, t1 = slab_enter(o, inv, tree[nd, 6:9], tree[nd, 9:12], bt)
+            swap = t1 < t0           # the nearer child goes on top
+            far_h = torch.where(swap, h0, h1)
+            far = torch.where(swap, kids[nd, 0], kids[nd, 1])
+            far_t = torch.where(swap, t0, t1)
+            near_h = torch.where(swap, h1, h0)
+            near = torch.where(swap, kids[nd, 1], kids[nd, 0])
+            near_t = torch.where(swap, t1, t0)
+            push(r[far_h], far[far_h], far_t[far_h])
+            push(r[near_h], near[near_h], near_t[near_h])
+
+        r_all, lf_all = rays[~inner], -1 - entry[~inner]
+        for c0 in range(0, r_all.numel(), chunk):
+            r, lf = r_all[c0:c0 + chunk], lf_all[c0:c0 + chunk]
+            leaves[r] += 1
+            idx = start[lf][:, None] + ks
+            valid = ks < count[lf][:, None]
+            idx = torch.where(valid, idx, 0)
+            t, ok = _mt(ray_o[r][:, None], ray_d[r][:, None], tri[idx, 0:3],
+                        tri[idx, 3:6], tri[idx, 6:9])
+            t = torch.where(ok & valid, t, FLOAT_INF)
+            k = torch.argmin(t, dim=1, keepdim=True)   # the lowest row
+            tk, row = t.gather(1, k)[:, 0], idx.gather(1, k)[:, 0]
+            bt, br = best_t[r], best[r]
+            better = (tk < bt) | ((tk == bt) & (row < br) & (tk < FLOAT_INF))
+            best_t[r] = torch.where(better, tk, bt)
+            best[r] = torch.where(better, row, br)
+    if opened:
+        return best_t, best, nodes, leaves
+    return best_t, best
 
 
 def intersect_bvh(ray_o, ray_d, flat, v1, v2, v3, max_leaf: int,

@@ -24,6 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pathtracer_tpu_torch"
+LIB_NAME = "libpathtracer_tpu_torch"
 
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # operation as the plain PyTorch versions do (see csrc/trace_kernel.cu).
@@ -54,27 +55,34 @@ def _nvcc() -> str:
         "pathtracer_tpu_torch are built from source at first use")
 
 
-def _sources():
-    sources = sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path, names):
+    sources = (sorted(csrc.glob("*.cu")) if names is None
+               else [csrc / n for n in names])
     if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     return sources
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, name: str = LIB_NAME,
+                 sources=None) -> Path:
     digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted([*_sources(csrc, sources), *csrc.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpathtracer_tpu_torch-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_library() -> Build:
+def build_library(csrc: Path = CSRC, name: str = LIB_NAME,
+                  sources=None) -> Build:
     """Compile the sources unless a library for their hash exists: one
-    ``nvcc -c`` per source, run in parallel, then one link.  A failed
-    ``nvcc`` raises ``RuntimeError`` with its output."""
-    path = library_path()
+    ``nvcc -c`` per source, run in parallel, then one link.  By default
+    every ``.cu`` of this package's ``csrc/``; ``csrc``, ``name`` and
+    ``sources`` (file names) build another set, such as an older
+    checkout's kernels for an A/B.  A failed ``nvcc`` raises
+    ``RuntimeError`` with its output."""
+    csrc = Path(csrc)
+    path = library_path(csrc, name, sources)
     if path.exists():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,7 +90,7 @@ def build_library() -> Build:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
-        for src in _sources():
+        for src in _sources(csrc, sources):
             obj = os.path.join(tmp, src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
             jobs.append((cmd, obj, subprocess.Popen(
@@ -119,10 +127,26 @@ def error_string(lib: ctypes.CDLL, code: int) -> str:
     return lib.pt_error_string(code).decode()
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built if needed and loaded once per process."""
-    path = build_library().path
-    lib = _LOADED.get(path)
+def load_library(csrc: Path = CSRC, name: str = LIB_NAME,
+                 sources=None) -> ctypes.CDLL:
+    """The kernel library (by default this package's; the arguments as in
+    ``build_library``), built if needed and loaded once per process: the
+    sources are hashed at the first call only, since the wrappers call this
+    on every launch (reading and hashing them took milliseconds a call on a
+    machine with the card, more than a cluster-kernel launch)."""
+    key = (str(csrc), name, None if sources is None else tuple(sources))
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = _LOADED[path] = ctypes.CDLL(str(path))
+        lib = _LOADED[key] = ctypes.CDLL(
+            str(build_library(csrc, name, sources).path))
     return lib
+
+
+def check_tree_depth(lib: ctypes.CDLL, depth: int, what: str) -> None:
+    """Raises ValueError when a box tree of ``depth`` is deeper than the
+    cluster and beam kernels' stacks (``pt_tree_stack_size``)."""
+    lib.pt_tree_stack_size.restype = ctypes.c_int
+    limit = lib.pt_tree_stack_size()
+    if depth > limit:
+        raise ValueError(f"{what}: a box tree of depth {depth} is deeper "
+                         f"than the kernels' stack of {limit} entries")

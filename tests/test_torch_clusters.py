@@ -177,20 +177,27 @@ def test_intersect_clusters_checks_inputs():
         tck.intersect_clusters(o, torch.zeros((4, 2)), cs)
 
 
-def test_block_order_is_front_to_back():
-    """Each block's visit order is a permutation of the clusters, nearest
-    box centre to the block's mean origin first."""
-    _, tscene = SCENES["sphere10x20"]()
-    cs = tpt.build_clusters(tscene, max_tris=16)
-    ro, _ = _random_rays(50, 450, 2 * tck.BLOCK_RAYS, seed=2)
-    order = tck._block_order(torch.from_numpy(ro), cs)
-    assert order.dtype == torch.int32
-    assert tuple(order.shape) == (2, cs.num_clusters)
-    for b in range(2):
-        assert sorted(order[b].tolist()) == list(range(cs.num_clusters))
-        mean = ro[b * tck.BLOCK_RAYS:(b + 1) * tck.BLOCK_RAYS].mean(0)
-        d2 = ((as_np(cs.centers) - mean) ** 2).sum(-1)[as_np(order[b])]
-        assert np.all(np.diff(d2) >= -1e-3 * d2.max())
+@pytest.mark.parametrize("max_tris", [16, 64])
+def test_intersect_tree_matches_jax(max_tris):
+    """The plain walk of the cluster set's box tree, the cluster kernel's
+    traversal, against the JAX package's brute intersection and its
+    cluster kernel in interpret mode, on the rays of tests/test_clusters.py
+    mapped to scene triangle ids."""
+    from pathtracer_tpu_torch.ops import intersect as tisect
+    jscene, tscene = SCENES["sphere10x20"]()
+    jcs = jpt.build_clusters(jscene, max_tris=max_tris)
+    tcs = tpt.build_clusters(tscene, max_tris=max_tris)
+    ro, rd = _random_rays(50, 450, 700, seed=3)
+    t_b, tid_b = jisect.intersect_brute(ro, rd, jscene.v1, jscene.v2,
+                                        jscene.v3)
+    t_k, tid_k = jck.intersect_clusters(ro, rd, jcs, interpret=True)
+    t, row = tisect.intersect_tree(torch.from_numpy(ro), torch.from_numpy(rd),
+                                   tcs.tree, tcs.tree_depth, tcs.start,
+                                   tcs.count, tcs.tri_data)
+    tid = torch.where(row >= 0, tcs.tid_map[row.clamp_min(0)], -1).int()
+    assert int((tid >= 0).sum()) > 300
+    assert_hits_match(t, tid, t_b, tid_b)
+    assert_hits_match(t, tid, t_k, tid_k)
 
 
 def test_scene_fields_survive_build():
