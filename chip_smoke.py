@@ -60,7 +60,26 @@ not 0:
      DIR, the older kernels (DIR/beam_kernel.cu, DIR/cluster_kernel.cu,
      built beside this checkout's, driven by copies of their wrappers) are
      timed beside these in the order older, new, new, older: the beam
-     launch, the cluster call and both renders of each scene;
+     launch, the cluster call and both renders of each scene.  The
+     default backend="cluster" render is timed after a first call, which
+     builds the cluster set (clusters_for caches it) and is printed apart;
+ 10. differentiable rendering and material recovery: (a) recover_materials
+     on the 128^2 Cornell box, 384 spp (192 + 192 paired), depth 5,
+     backend="brute", albedo and emission, 5 steps: finite losses, median
+     seconds a step and peak device memory, the brute path launching no
+     kernel; 3 more steps with the index_select gather in place of the
+     one-hot matmul, and one gradient computed twice with each form (bit
+     for bit or not); (b) on sphere_in_box(50, 100) at 64^2, 8 spp, depth
+     4, backend="cluster": a film and a make_loss value and gradient
+     through the kernel against the same with the plain intersection
+     (films bit-identical, gradients within relative L2 1e-4), one kernel
+     launch a bounce, 2 x depth a paired recovery step; (c) on
+     mesh_garden() (105,708 triangles) at 64^2, 8 spp, depth 4: 3 recovery
+     steps through the kernel (launches counted from 0) and a one-sided
+     gradcheck of two albedo coordinates at 2 spp, depth 3 (bar 0.05);
+     (d) tests/test_inverse.py's recovery on the card: 32^2, 250 steps, 64
+     spp, depth 4, the target rendered by backend="cuda", visible-diffuse
+     albedo and emission errors under 0.15;
 then one JSON line on the kernels (each with its launches on its main
 path, its error against its plain version, its time, the plain version's,
 its bound: the operations these inputs need over the card's published
@@ -129,6 +148,39 @@ BEAM_LAUNCH_CALLS = 2        # back-to-back launches per timed run
 # The older kernels of an A/B (--parent-csrc): the sources built, and the
 # argument types of their entry points.
 PARENT_SOURCES = ("beam_kernel.cu", "cluster_kernel.cu")
+
+# The differentiable path (phase 10).  (a) The Cornell recovery at the width
+# of the JAX package's benchmark (bench_invert.py workload 1): 128^2, 384
+# spp (192 + 192 paired), depth 5, brute.
+DIFF_RES = (128, 128)
+DIFF_SPP = 384
+DIFF_STEPS = 5
+DIFF_TARGET_SPP = 4096       # target film, backend="cuda"
+GATHER_STEPS = 3             # steps timed with the index_select gather
+REPRO_SPP = 16               # the gradient computed twice, each gather form
+# (b) The cluster kernel on the gradient path, sphere9812 at 64^2, 8 spp,
+# depth 4; gradients against the plain intersection within DIFF_GRAD_RTOL:
+# the hits are bit-identical, and above ONEHOT_GATHER_MAX_ROWS rows the
+# table's gradient sums ~10^5 per-ray terms with float atomics in a varying
+# order, relative L2 1e-4 covers any order of float32 sums of that size.
+KERNEL_DIFF_RES = (64, 64)
+KERNEL_DIFF_SPP = 8
+KERNEL_DIFF_DEPTH = 4
+DIFF_GRAD_RTOL = 1e-4
+# (c) The garden (bench_invert.py workload 5): 64^2, 8 spp, depth 4, 3
+# steps; a one-sided gradcheck of the two largest albedo gradients at 2
+# spp, depth 3, eps 2e-2, bar 0.05 (the JAX package's own run read 1.03e-2,
+# INVERT_r05.json; its bench's bar is 0.05).
+GARDEN_DIFF_STEPS = 3
+GARDEN_TARGET_SPP = 1024     # target film, backend="beam"
+GRADCHECK_BAR = 0.05
+# (d) tests/test_inverse.py's CI-sized Cornell recovery on the card.
+CI_RES = (32, 32)
+CI_STEPS = 250
+CI_SPP = 64
+CI_DEPTH = 4
+CI_TARGET_SPP = 2048
+CI_BAR = 0.15
 
 
 def check(cond, msg):
@@ -957,14 +1009,27 @@ def phase_timing(pt, dev, card, record, parent=None):
         segs = {"beam": LARGE_RES[0] * LARGE_RES[1] * beam_spp * DEPTH,
                 "cluster": LARGE_RES[0] * LARGE_RES[1] * cluster_spp * DEPTH}
         for backend, spp in (("beam", beam_spp), ("cluster", cluster_spp)):
+            first = ""
+            if backend == "cluster":
+                # The first call builds the cluster set on the host; the
+                # timed ones find it in clusters_for's cache.
+                ck._CLUSTER_CACHE.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pt.render_film(c, s, spp, DEPTH, backend=backend)
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                first = f", the first call (builds the set) {first_ms:.3f} ms"
             ms, runs = device_ms(lambda: pt.render_film(
                 c, s, spp, DEPTH, backend=backend), calls=1)
             rate = segs[backend] / ms * 1e3
             print(f"{card}: {name} {backend} 512^2, {spp} spp, depth "
                   f"{DEPTH}: {ms:.3f} ms per render (runs {runs}), "
-                  f"{rate:.4e} ray segments/s", flush=True)
+                  f"{rate:.4e} ray segments/s{first}", flush=True)
             out["renders"][f"{name} {backend}"] = {
                 "spp": spp, "ms": ms, "runs": runs, "segments_per_s": rate}
+            if first:
+                out["renders"][f"{name} {backend}"]["first_ms"] = first_ms
         # With the cluster set built once, so that the host build's noise
         # stays out of the comparisons: the older kernels against the new
         # ones, then the cluster render without the kernel's ray sort (the
@@ -1013,6 +1078,230 @@ def phase_timing(pt, dev, card, record, parent=None):
     record["large_timing"] = out
     return {"beam_kernel": beam_times, "cluster_kernel": cluster_times,
             "cluster_err": cluster_err}
+
+
+@contextlib.contextmanager
+def timed_steps(times):
+    """Appends the seconds of every ``inverse._train_step`` inside the
+    block to ``times`` (a step ends in ``float(loss)``, which waits for the
+    device)."""
+    from pathtracer_tpu_torch import inverse
+    real = inverse._train_step
+
+    def step(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    with swapped(inverse, "_train_step", step):
+        yield
+
+
+def loss_and_grad(loss, params):
+    """(value, {name: gradient}) of ``loss`` at ``params``."""
+    import torch
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    value = loss(leaves)
+    grads = torch.autograd.grad(value, list(leaves.values()))
+    return value.detach(), dict(zip(leaves, grads))
+
+
+def rel_l2(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def recovery_run(pt, card, name, cam, scene, target, **kw):
+    """recover_materials with its steps timed; prints and returns the
+    record (median seconds per step, peak device memory)."""
+    import statistics
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch import inverse
+
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_steps(times):
+        mats, losses = inverse.recover_materials(cam, scene, target, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(np.isfinite(losses).all() and len(losses) == kw["steps"],
+          f"{name}: losses {losses}")
+    med = statistics.median(times)
+    spread = (f"steps {[round(t, 4) for t in times]}" if len(times) <= 10
+              else f"fastest {min(times):.4f}, slowest {max(times):.4f}")
+    print(f"{card}: {name}: {kw['steps']} steps, median {med:.4f} s a step "
+          f"({spread}), peak device memory "
+          f"{peak / 2**30:.3f} GiB, losses {losses[0]:.4e} -> "
+          f"{losses[-1]:.4e}", flush=True)
+    return mats, {"steps": kw["steps"], "seconds_per_step": med,
+                  "step_seconds": times, "peak_bytes": peak,
+                  "loss_first": float(losses[0]),
+                  "loss_last": float(losses[-1])}
+
+
+def phase_diff(pt, dev, card, record):
+    """Phase 10 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch import diff, inverse
+    from pathtracer_tpu_torch.ops import trace as trace_ops
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    print("== 10 differentiable rendering and material recovery "
+          f"(allow_tf32 {torch.backends.cuda.matmul.allow_tf32})", flush=True)
+    out = {}
+
+    # (a) The Cornell recovery at full width; both gather forms.
+    cam, scene = pt.cornell_box(res=DIFF_RES)
+    target = pt.render_film(cam, scene, DIFF_TARGET_SPP, DEPTH,
+                            backend="cuda").data
+    kw = dict(samples=DIFF_SPP, depth=DEPTH, lr=0.08, backend="brute",
+              optimize=("albedo", "emit"))
+    name = (f"cornell {DIFF_RES[0]}^2, {DIFF_SPP} spp paired, depth "
+            f"{DEPTH}, brute")
+    ttk.LAUNCHES = ck.LAUNCHES = bk.LAUNCHES = 0
+    _, out["cornell"] = recovery_run(pt, card, name + ", one-hot gather",
+                                     cam, scene, target, steps=DIFF_STEPS,
+                                     **kw)
+    check(ttk.LAUNCHES == ck.LAUNCHES == bk.LAUNCHES == 0,
+          "the brute recovery launched a kernel")
+    with swapped(trace_ops, "ONEHOT_GATHER_MAX_ROWS", 0):
+        _, out["cornell index_select"] = recovery_run(
+            pt, card, name + ", index_select gather", cam, scene, target,
+            steps=GATHER_STEPS, **kw)
+    loss = diff.make_loss(cam, scene, target, REPRO_SPP, DEPTH)
+    params = diff.material_params(scene)
+    repro = {}
+    for form, rows in (("onehot", trace_ops.ONEHOT_GATHER_MAX_ROWS),
+                       ("index_select", 0)):
+        with swapped(trace_ops, "ONEHOT_GATHER_MAX_ROWS", rows):
+            _, g1 = loss_and_grad(loss, params)
+            _, g2 = loss_and_grad(loss, params)
+        repro[form] = {k: {"bit_equal": bool(torch.equal(g1[k], g2[k])),
+                           "rel_l2": rel_l2(g1[k], g2[k])} for k in g1}
+    print(f"the same gradient twice ({REPRO_SPP} spp): {repro}", flush=True)
+    out["reproducible"] = repro
+
+    # (b) The cluster kernel on the gradient path against the plain
+    # intersection.
+    cam_s, sb = pt.meshes.sphere_in_box(50, 100)
+    scene_s = sb.build()
+    cam_s = with_res(cam_s, KERNEL_DIFF_RES)
+    target_s = pt.render_film(cam_s, scene_s, 64, KERNEL_DIFF_DEPTH,
+                              backend="beam").data
+    params = diff.material_params(scene_s)
+    loss = diff.make_loss(cam_s, scene_s, target_s, KERNEL_DIFF_SPP,
+                          KERNEL_DIFF_DEPTH, backend="cluster")
+    n0 = ck.LAUNCHES
+    film_k = diff.render_film_diff(cam_s, scene_s, params, KERNEL_DIFF_SPP,
+                                   KERNEL_DIFF_DEPTH, backend="cluster")
+    value_k, grads_k = loss_and_grad(loss, params)
+    torch.cuda.synchronize()
+    launches = ck.LAUNCHES - n0
+    with swapped(ck, "intersect_clusters",
+                 lambda o, d, cs, **_: ck.intersect_clusters_reference(
+                     o, d, cs)):
+        film_p = diff.render_film_diff(cam_s, scene_s, params,
+                                       KERNEL_DIFF_SPP, KERNEL_DIFF_DEPTH,
+                                       backend="cluster")
+        value_p, grads_p = loss_and_grad(loss, params)
+    torch.cuda.synchronize()
+    errs = {k: rel_l2(grads_k[k], grads_p[k]) for k in grads_k}
+    grad_err = max(errs.values())
+    print(f"sphere9812 {KERNEL_DIFF_RES[0]}^2, {KERNEL_DIFF_SPP} spp, depth "
+          f"{KERNEL_DIFF_DEPTH}, backend='cluster': {launches} kernel "
+          f"launches for a film and a loss with its gradient; film "
+          f"bit-identical to the plain intersection's "
+          f"{bool(torch.equal(film_k, film_p))}, loss {float(value_k):.6e} "
+          f"vs {float(value_p):.6e}, gradients' relative L2 difference "
+          f"{errs} (bar {DIFF_GRAD_RTOL})", flush=True)
+    check(launches == 2 * KERNEL_DIFF_DEPTH,
+          f"{launches} cluster launches, not one a bounce")
+    check(float(film_k.mean()) > 0.0 and torch.equal(film_k, film_p),
+          "the kernel's differentiable film differs from the plain one")
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+          "non-finite gradient")
+    check(grad_err <= DIFF_GRAD_RTOL, f"gradients differ by {errs}")
+    n0 = ck.LAUNCHES
+    inverse.recover_materials(cam_s, scene_s, target_s, steps=1,
+                              samples=KERNEL_DIFF_SPP,
+                              depth=KERNEL_DIFF_DEPTH, backend="cluster",
+                              optimize=("albedo",))
+    paired = ck.LAUNCHES - n0
+    print(f"one paired recovery step: {paired} cluster launches", flush=True)
+    check(paired == 2 * KERNEL_DIFF_DEPTH,
+          f"{paired} launches for a paired step, not 2 x depth")
+    out["kernel"] = {"launches_film_and_loss": launches,
+                     "launches_paired_step": paired, "grad_rel_l2": errs,
+                     "loss": float(value_k), "plain_loss": float(value_p)}
+
+    # (c) The garden: recovery steps and a gradcheck through the kernel.
+    cam_g, sb = pt.meshes.mesh_garden()
+    scene_g = sb.build()
+    cam_g = with_res(cam_g, KERNEL_DIFF_RES)
+    target_g = pt.render_film(cam_g, scene_g, GARDEN_TARGET_SPP,
+                              KERNEL_DIFF_DEPTH, backend="beam").data
+    t0 = time.perf_counter()
+    diff.make_accel(scene_g, "cluster")
+    accel_s = time.perf_counter() - t0
+    ttk.LAUNCHES = ck.LAUNCHES = bk.LAUNCHES = 0
+    _, out["garden"] = recovery_run(
+        pt, card, f"garden105708 {KERNEL_DIFF_RES[0]}^2, {KERNEL_DIFF_SPP} "
+        f"spp paired, depth {KERNEL_DIFF_DEPTH}, cluster", cam_g, scene_g,
+        target_g, steps=GARDEN_DIFF_STEPS, samples=KERNEL_DIFF_SPP,
+        depth=KERNEL_DIFF_DEPTH, lr=0.08, lr_end=8e-3, backend="cluster",
+        optimize=("albedo",))
+    per_step = ck.LAUNCHES / GARDEN_DIFF_STEPS
+    check(ck.LAUNCHES == GARDEN_DIFF_STEPS * 2 * KERNEL_DIFF_DEPTH
+          and ttk.LAUNCHES == bk.LAUNCHES == 0,
+          f"garden recovery launched cluster {ck.LAUNCHES}, trace "
+          f"{ttk.LAUNCHES}, beam {bk.LAUNCHES}")
+    gc_loss = diff.make_loss(cam_g, scene_g, target_g, 2, 3,
+                             backend="cluster")
+    params = diff.material_params(scene_g)
+    _, g = loss_and_grad(gc_loss, params)
+    top = torch.argsort(g["albedo"].abs().flatten())[-2:].tolist()
+    gc_abs, gc_rel = diff.gradcheck(gc_loss, params, eps=2e-2,
+                                    indices=[("albedo", i) for i in top],
+                                    mode="one_sided")
+    print(f"garden: cluster set (cached) {accel_s:.3f} s, {per_step:g} "
+          f"cluster launches a step; gradcheck of albedo {top} at 2 spp, "
+          f"depth 3: abs {gc_abs:.4e}, rel {gc_rel:.4e} (bar "
+          f"{GRADCHECK_BAR})", flush=True)
+    check(gc_rel < GRADCHECK_BAR, f"garden gradcheck {gc_rel}")
+    out["garden"].update(launches_per_step=per_step, gradcheck_rel=gc_rel,
+                         gradcheck_abs=gc_abs, probes=top)
+
+    # (d) The CI-sized Cornell recovery under its bars.
+    cam, scene = pt.cornell_box(res=CI_RES)
+    target = pt.render_film(cam, scene, CI_TARGET_SPP, CI_DEPTH,
+                            backend="cuda").data
+    mats, out["ci"] = recovery_run(
+        pt, card, f"cornell {CI_RES[0]}^2, {CI_SPP} spp, depth {CI_DEPTH}",
+        cam, scene, target, steps=CI_STEPS, samples=CI_SPP, depth=CI_DEPTH,
+        lr=0.08, lr_end=4e-3, optimize=("albedo", "emit"))
+    mtype, alb_true, emit_true, _ = scene.host_materials()
+    vis = (inverse.visible_pixel_counts(cam, scene) >= 8) & (
+        mtype == pt.DIFFUSE)
+    check(vis.sum() >= 10, f"{vis.sum()} visible diffuse triangles")
+    alb = mats["albedo"].cpu().numpy()[:scene.num_tris]
+    emit = mats["emit"].cpu().numpy()[:scene.num_tris]
+    alb_err = float(np.abs(alb - alb_true)[vis].mean())
+    light = mtype == pt.EMIT
+    emit_err = float(np.abs(emit[light] - emit_true[light]).mean())
+    print(f"cornell {CI_RES[0]}^2 recovery: visible-diffuse albedo error "
+          f"{alb_err:.4f}, emission error {emit_err:.4f} (bars {CI_BAR})",
+          flush=True)
+    check(alb_err < CI_BAR and emit_err < CI_BAR,
+          f"recovery errors {alb_err}, {emit_err}")
+    out["ci"].update(albedo_err=alb_err, emit_err=emit_err,
+                     visible=int(vis.sum()))
+    record["diff"] = out
 
 
 def phase_build(record, parent_csrc=None):
@@ -1328,6 +1617,7 @@ def main():
     beam_err = max(beam_err, band_err)
     times = phase_timing(pt, dev, card, record, parent)
     cluster_err = max(cluster_err, times["cluster_err"])
+    phase_diff(pt, dev, card, record)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 

@@ -6,6 +6,12 @@ Typical use, on an NVIDIA GPU:
     cam, scene = pt.cornell_box(res=(1024, 1024))
     film = pt.render(cam, scene, samples=256, depth=5, filename="out.png")
 
+Material recovery from a target film:
+
+    from pathtracer_tpu_torch import inverse
+    mats, losses = inverse.recover_materials(cam, scene, target, steps=250,
+                                             samples=64, depth=4)
+
 Large meshes take the same call:
 
     from pathtracer_tpu_torch import meshes
@@ -31,7 +37,8 @@ Module map (each mirrors the module of the same name in pathtracer_tpu):
     ops.cuda.cluster_kernel
     ops.cuda.beam_kernel
     render                      L4 drivers
-    convert                     numpy arrays -> Camera / Scene
+    diff, inverse               differentiable rendering, material recovery
+    convert                     numpy arrays -> Camera / Scene / parameters
     utils                       timer, checkpoints, kernel build, native lib
     examples                    runnable example renders
 """
@@ -56,7 +63,10 @@ from . import meshes  # noqa: F401
 from .render import (  # noqa: F401
     render, render_film, render_normals, render_debug_uv,
 )
-from .convert import camera_from_arrays, scene_from_arrays  # noqa: F401
+from . import diff, inverse  # noqa: F401
+from .convert import (  # noqa: F401
+    camera_from_arrays, scene_from_arrays, material_params_from_arrays,
+)
 from .utils.timer import Timer  # noqa: F401
 
 __version__ = "0.1.0"

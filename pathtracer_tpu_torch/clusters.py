@@ -16,13 +16,15 @@ Both builders are host numpy work and produce the JAX package's arrays
 exactly; the accels hold CPU tensors and move with ``.to(device)``.  Each
 also keeps the BVH nodes above its cut (clusters, superclusters) as a box
 tree (``_box_tree``), which the CUDA kernels walk in place of a loop over
-every leaf box; the JAX package has no such array.
+every leaf box; the JAX package has no such array.  ``cached_accel`` keeps
+the accels of the last few scenes, so a render call does not pay the host
+build again.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -43,6 +45,26 @@ MAX_SC_CLUSTERS = 2040      # clusters per supercluster cap
 
 _PAD_BOX = np.array([[3e38, 3e38, 3e38, -3e38, -3e38, -3e38, 0, 0]],
                     np.float32)
+
+
+CACHE_SIZE = 4              # accels kept per cache
+
+
+def cached_accel(cache: List, scene: Scene, build: Callable[[Scene], object]):
+    """``build(scene)`` moved to the scene's device, from ``cache``, a list
+    of ``((fingerprint, device), accel)`` pairs, newest last.  The key is
+    the scene's byte fingerprint (``Scene.fingerprint``).  The least
+    recently used accel goes first: a hit moves to the newest end, so the
+    accel just served is never the one evicted."""
+    key = (scene.fingerprint(), str(scene.device))
+    for i, (k, a) in enumerate(cache):
+        if k == key:
+            cache.append(cache.pop(i))
+            return a
+    a = build(scene).to(scene.device)
+    cache.append((key, a))
+    del cache[:-CACHE_SIZE]
+    return a
 
 
 def _to(obj, fields, device):

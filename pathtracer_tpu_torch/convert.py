@@ -1,12 +1,16 @@
-"""Build the port's ``Camera`` / ``Scene`` from numpy arrays.
+"""Build the port's ``Camera`` / ``Scene`` / material parameters from numpy
+arrays.
 
 The arrays may come from any source, for example ``np.asarray`` of each
-field of a ``pathtracer_tpu`` camera or scene: that carries one scene across
-the two packages unchanged, which is how the port is held against the JAX
-package.
+field of a ``pathtracer_tpu`` camera or scene, of its material parameters
+(``inverse.init_params``) or of a JAX train checkpoint's ``params:i``
+arrays: that carries one scene or one optimizer's state across the two
+packages unchanged, which is how the port is held against the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -36,3 +40,12 @@ def camera_from_arrays(pos, forward, up, right, world_up, v_res, cell_size,
                world_up=t(world_up), v_res=t(v_res), cell_size=t(cell_size),
                distance=t(distance), res=(int(res[0]), int(res[1])),
                pixel_offset=float(pixel_offset)), pos)
+
+
+def material_params_from_arrays(arrays: Mapping[str, np.ndarray], *,
+                                device="cuda") -> Dict[str, torch.Tensor]:
+    """{name: array} of material parameters (``albedo`` (T, 3), ``emit``
+    (T, 3), ``roughness`` (T,), physical or unconstrained) -> the same
+    names as float32 tensors on ``device``."""
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for k, v in arrays.items()}

@@ -31,7 +31,6 @@ takes the plain version only when the scene lies on the CPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,7 +38,8 @@ import torch
 
 from ... import rng as prng
 from ...camera import Camera
-from ...clusters import MAX_BEAM_SC, BeamAccel, build_beam_accel
+from ...clusters import (MAX_BEAM_SC, BeamAccel, build_beam_accel,
+                         cached_accel)
 from ...image import Film
 from ...linalg import FLOAT_INF, SHIFT_BIAS, dot
 from ...materials import _TWO_PI, SPECULAR_TRIES
@@ -66,32 +66,12 @@ _ACCEL_CACHE = []     # [((fingerprint, device), accel)], newest last
 _RASTER_CACHE = {}    # (wp, hp, device) -> raster index tensor
 
 
-def _scene_fingerprint(scene: Scene):
-    """Content key over the RAW BYTES of every geometry and material array:
-    a float sum would serve a stale accel after a sum-preserving edit."""
-    h = hashlib.sha1()
-    for arr in (*scene.host_verts(), *scene.host_materials()):
-        a = np.ascontiguousarray(arr)
-        h.update(str(a.shape).encode())
-        h.update(a.tobytes())
-    return (scene.num_tris, h.hexdigest())
-
-
 def _accel_for(scene: Scene) -> BeamAccel:
     """The scene's beam accel on the scene's device, from a small
-    content-keyed cache: the host build must not be paid per render call.
-    Raises the builder's ValueError when the accel cannot represent the
-    scene.  The least recently used accel goes first: a hit moves to the
-    newest end, so the accel just served is never the one evicted."""
-    key = (_scene_fingerprint(scene), str(scene.device))
-    for i, (k, a) in enumerate(_ACCEL_CACHE):
-        if k == key:
-            _ACCEL_CACHE.append(_ACCEL_CACHE.pop(i))
-            return a
-    a = build_beam_accel(scene).to(scene.device)
-    _ACCEL_CACHE.append((key, a))
-    del _ACCEL_CACHE[:-4]
-    return a
+    content-keyed cache (``clusters.cached_accel``): the host build must
+    not be paid per render call.  Raises the builder's ValueError when the
+    accel cannot represent the scene."""
+    return cached_accel(_ACCEL_CACHE, scene, build_beam_accel)
 
 
 def _padded_res(width: int, height: int) -> Tuple[int, int]:

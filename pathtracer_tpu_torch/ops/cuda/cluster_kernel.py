@@ -27,7 +27,8 @@ off by default.
 On a CUDA batch ``intersect_clusters`` launches the kernel or raises; it
 takes the plain version, ``intersect_clusters_reference`` (dense
 Möller–Trumbore against every packed row), only when the rays lie on the
-CPU.
+CPU.  ``clusters_for`` keeps the cluster sets of the last few scenes, so the
+render driver and the differentiable path build a scene's set once.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from typing import Tuple
 
 import torch
 
-from ...clusters import ClusterSet
+from ...clusters import ClusterSet, build_clusters, cached_accel
+from ...scene import Scene
 from ...utils import build
 from ..intersect import (MOMENT_OPS, PLUCKER_OPS, SLAB_OPS, boxes_entered,
                          intersect_packed)
@@ -48,6 +50,16 @@ _MORTON_BITS = 6      # per axis: 18-bit cell, 3-bit octant sort keys
 LAUNCHES = 0          # kernel launches since the last reset
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+_CLUSTER_CACHE = []   # [((fingerprint, device), cluster set)], newest last
+
+
+def clusters_for(scene: Scene) -> ClusterSet:
+    """The scene's cluster set on the scene's device, from a small cache
+    keyed by the scene's bytes (``clusters.cached_accel``): the host build
+    is most of a cluster render's time on a large mesh, and must not be
+    paid per call."""
+    return cached_accel(_CLUSTER_CACHE, scene, build_clusters)
 
 
 def _spread3(x: torch.Tensor) -> torch.Tensor:

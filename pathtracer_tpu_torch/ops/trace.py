@@ -6,7 +6,10 @@ miss kills the path; an EMIT hit adds its emission and kills the path; the
 next origin is ``hit_p + normal * SHIFT_BIAS``.  Dead rays are masked.
 
 Per-triangle shading constants live in one (T, 12) table, gathered by hit
-triangle id with a plain ``index_select``.
+triangle id (``gather_features``): a plain ``index_select``, or, where a
+gradient flows into a table of up to ``ONEHOT_GATHER_MAX_ROWS`` rows, a
+one-hot matmul, whose backward is a matmul and not ``index_add_``'s
+float atomics.
 """
 
 from __future__ import annotations
@@ -52,9 +55,33 @@ def shade_table(scene: Scene) -> torch.Tensor:
     ], dim=-1)
 
 
+# Largest table gathered by one-hot matmul on the gradient path, as in the
+# JAX package: the backward keeps the (rays, T) one-hot, linear in T.
+ONEHOT_GATHER_MAX_ROWS = 4096
+
+
 def gather_features(table: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` by triangle id: (...,) -> (..., C); id -1 (a miss)
-    gives an all-zero row."""
+    gives an all-zero row.
+
+    Where autograd records the table and it has at most
+    ``ONEHOT_GATHER_MAX_ROWS`` rows, the gather is ``one_hot(tid) @
+    table``: the rows come out exact (products by 0 and 1, in float32), and
+    the table's gradient is the matmul ``one_hot.T @ grad``, a sum in a
+    fixed order, where ``index_select``'s backward adds every ray into its
+    row with float atomics, in another order at every run on the card.
+    That needs float32 matmuls without TF32, which keeps ten bits of
+    mantissa: with ``torch.backends.cuda.matmul.allow_tf32`` set on a CUDA
+    table it raises."""
+    T = table.shape[0]
+    if table.requires_grad and torch.is_grad_enabled() \
+            and T <= ONEHOT_GATHER_MAX_ROWS:
+        if table.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "gather_features: the one-hot gather needs full float32 "
+                "matmuls; torch.backends.cuda.matmul.allow_tf32 is set")
+        ids = torch.arange(T, device=table.device, dtype=tid.dtype)
+        return (tid[..., None] == ids).to(table.dtype) @ table
     rows = table.index_select(0, tid.clamp_min(0).reshape(-1).to(torch.int64))
     rows = rows.reshape(tuple(tid.shape) + (table.shape[1],))
     return torch.where((tid >= 0)[..., None], rows, 0.0)

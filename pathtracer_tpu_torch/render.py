@@ -164,7 +164,8 @@ def _flat(fn):
 
 def _tile_intersect(backend: str, scene: Scene, accel):
     """(intersect, park pose) of the tile driver's backend; ``accel`` is
-    the caller's FlatBVH or ClusterSet, or None."""
+    the caller's FlatBVH or ClusterSet, or None (the cluster set then comes
+    from ``cluster_kernel.clusters_for``'s cache)."""
     dev = scene.device
     if backend == "brute":
         return None, None
@@ -175,9 +176,12 @@ def _tile_intersect(backend: str, scene: Scene, accel):
             o, d, bvh, scene.v1, scene.v2, scene.v3, bvh.max_leaf,
             bvh.stack_size()))
     else:
-        cs = accel if isinstance(accel, ClusterSet) else build_clusters(
-            scene, bvh=accel)
-        cs = cs.to(dev)
+        if isinstance(accel, ClusterSet):
+            cs = accel.to(dev)
+        elif accel is None:
+            cs = cluster_kernel.clusters_for(scene)
+        else:
+            cs = build_clusters(scene, bvh=accel).to(dev)
         fn = _flat(lambda o, d: cluster_kernel.intersect_clusters(o, d, cs))
     # Dead rays park at a guaranteed-miss pose outside the scene box, where
     # they fail every cluster box test (and the optional ray sort packs

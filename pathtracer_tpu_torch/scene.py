@@ -11,6 +11,7 @@ example scenes' geometry data verbatim: ``cornell_box``,
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Tuple
 
 import numpy as np
@@ -116,9 +117,36 @@ class Scene:
         n = self.num_tris
         cached = getattr(self, "_host_m", None)
         if cached is None:
-            cached = tuple(a.cpu().numpy() for a in (
+            cached = tuple(a.detach().cpu().numpy() for a in (
                 self.mat_type, self.albedo, self.emit, self.roughness))
         return tuple(a[:n] for a in cached)
+
+    def fingerprint(self) -> Tuple[int, str]:
+        """Content key over the RAW BYTES of every geometry and material
+        array: a float sum would let a sum-preserving edit pass for the
+        same scene (a stale accel, a resumed run on another scene)."""
+        h = hashlib.sha1()
+        for arr in (*self.host_verts(), *self.host_materials()):
+            a = np.ascontiguousarray(arr)
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+        return (self.num_tris, h.hexdigest())
+
+    def replace_materials(self, albedo=None, emit=None,
+                          roughness=None) -> "Scene":
+        """The scene with swapped material tensors (the differentiable
+        path).  The geometry is unchanged, so the host vertex cache stays;
+        the host material cache does not, since it would describe the old
+        materials to every packer and key that reads ``host_materials``."""
+        new = dataclasses.replace(
+            self,
+            albedo=self.albedo if albedo is None else albedo,
+            emit=self.emit if emit is None else emit,
+            roughness=self.roughness if roughness is None else roughness)
+        cached = getattr(self, "_host_v", None)
+        if cached is not None:
+            object.__setattr__(new, "_host_v", cached)
+        return new
 
 
 class SceneBuilder:

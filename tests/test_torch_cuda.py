@@ -505,3 +505,98 @@ def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
     assert len(guard.buffers) >= 2 and guard.margins_intact()
     assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
     assert float(first.sum()) > 0.0
+
+
+# Gradients of the differentiable path through the kernel against the plain
+# intersection: the hits are bit-identical, so the per-ray terms are too;
+# the table's gradient sums them in a fixed order with the one-hot gather
+# (a matmul), and with float atomics in a varying order with
+# ``index_select``'s backward: relative L2 1e-4 covers float32 sums of the
+# ~10^4 terms a row gathers here in any order.
+DIFF_GRAD_RTOL = 1e-4
+
+
+def _loss_and_grad(loss, params):
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    value = loss(leaves)
+    grads = torch.autograd.grad(value, list(leaves.values()))
+    return value.detach(), dict(zip(leaves, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["onehot", "index_select"])
+def test_diff_cluster_kernel_matches_plain(cuda_device, monkeypatch, gather):
+    """make_loss through backend="cluster": the kernel's film equals the
+    plain intersection's bit for bit, and its gradients agree within
+    DIFF_GRAD_RTOL (bit for bit with the one-hot gather); one render
+    launches the kernel once a bounce."""
+    from pathtracer_tpu_torch import diff
+    from pathtracer_tpu_torch.ops import trace as ttrace
+
+    if gather == "index_select":
+        monkeypatch.setattr(ttrace, "ONEHOT_GATHER_MAX_ROWS", 0)
+    cam, scene = _lit_sphere(cuda_device, (32, 32))
+    params = diff.material_params(scene)
+    target = torch.full((32, 32, 3), 0.2, device=cuda_device)
+    loss = diff.make_loss(cam, scene, target, 4, 3, backend="cluster")
+    before = tck.LAUNCHES
+    film = diff.render_film_diff(cam, scene, params, 4, 3, backend="cluster")
+    value, grads = _loss_and_grad(loss, params)
+    assert tck.LAUNCHES == before + 2 * 3
+    with monkeypatch.context() as m:
+        m.setattr(tck, "intersect_clusters",
+                  lambda o, d, cs: tck.intersect_clusters_reference(o, d, cs))
+        plain_film = diff.render_film_diff(cam, scene, params, 4, 3,
+                                           backend="cluster")
+        plain_value, plain_grads = _loss_and_grad(loss, params)
+    torch.cuda.synchronize()
+    assert tck.LAUNCHES == before + 2 * 3
+    assert float(film.mean()) > 0.0 and torch.equal(film, plain_film)
+    assert torch.equal(value, plain_value)
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all()), k
+        err = float((g - plain_grads[k]).norm()
+                    / plain_grads[k].norm().clamp_min(1e-30))
+        assert err <= DIFF_GRAD_RTOL, (k, err)
+        if gather == "onehot":
+            assert torch.equal(g, plain_grads[k]), k
+
+
+@pytest.mark.cuda
+def test_recover_materials_raises_without_the_kernel(cuda_device,
+                                                     monkeypatch):
+    """On a CUDA scene the cluster backend launches the kernel or raises:
+    with the library unloadable, recover_materials raises and nothing
+    falls back to the plain version or the CPU."""
+    from pathtracer_tpu_torch import inverse
+    from pathtracer_tpu_torch.utils import build
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("nvcc failed (test)")
+
+    cam, scene = _lit_sphere(cuda_device, (16, 16))
+    target = torch.zeros((16, 16, 3), device=cuda_device)
+    monkeypatch.setattr(build, "load_library", refuse)
+    before = tck.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        inverse.recover_materials(cam, scene, target, steps=1, samples=2,
+                                  depth=2, backend="cluster",
+                                  optimize=("albedo",))
+    assert tck.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_recover_materials_runs_on_the_card(cuda_device):
+    """A few steps of the paired recovery on the card: finite losses, the
+    parameters and the result on the scene's device."""
+    from pathtracer_tpu_torch import diff, inverse
+
+    cam, scene = tpt.corner_scene(res=(16, 16), device=cuda_device)
+    target = diff.render_film_diff(cam, scene, diff.material_params(scene),
+                                   32, 2, sample_offset=900_000)
+    mats, losses = inverse.recover_materials(
+        cam, scene, target, steps=4, samples=4, depth=2,
+        optimize=("albedo",))
+    assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
+    assert all(v.device.type == "cuda" for v in mats.values())

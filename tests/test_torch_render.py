@@ -133,6 +133,7 @@ def test_package_never_imports_jax():
         "import sys, importlib\n"
         "mods = ['pathtracer_tpu_torch', 'pathtracer_tpu_torch.render',\n"
         "        'pathtracer_tpu_torch.convert',\n"
+        "        'pathtracer_tpu_torch.diff', 'pathtracer_tpu_torch.inverse',\n"
         "        'pathtracer_tpu_torch.ops.cuda.trace_kernel',\n"
         "        'pathtracer_tpu_torch.ops.cuda.cluster_kernel',\n"
         "        'pathtracer_tpu_torch.ops.cuda.beam_kernel',\n"
