@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of pathtracer_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent-csrc DIR]
+    python3 chip_smoke.py [--parent-csrc DIR] [--phases 11,12]
 
 Phases, each printed as it runs; any failure raises and the exit code is
 not 0:
@@ -80,11 +80,33 @@ not 0:
      (d) tests/test_inverse.py's recovery on the card: 32^2, 250 steps, 64
      spp, depth 4, the target rendered by backend="cuda", visible-diffuse
      albedo and emission errors under 0.15;
+ 11. sharded renders and training: two ranks spawned with
+     torch.multiprocessing, joined by parallel.distributed.initialize
+     through a file rendezvous, both on the one card (gloo: NCCL refuses
+     two ranks on one GPU).  render_film_sharded_cuda on the 1024^2
+     Cornell box at 256 spp, depth 5, and render_film_sharded_beam on
+     mesh_garden() at 512^2 (25 spp; 24 for the sample split, which needs
+     an even count): the tile split (2, 1) bit-identical to one process's
+     render_film, the sample split (1, 2) bit-identical to one process's
+     sum of the same two windows and within a relative 1e-5 of its film;
+     every rank's launches counted from 0 and non-zero; 3 steps of
+     make_sharded_train_step on the 128^2 Cornell box at 384 spp, depth
+     5, with the parameters bit-identical on both ranks after each step;
+     the wall times beside one process's (two ranks on one card cannot
+     show a speed-up), the seconds a step and the peak memory per rank;
+ 12. the realtime session (Cornell and garden at 256^2, 15 spp a frame,
+     4 frames): backends "cuda" and "beam", the accumulated film equal to
+     the running mean of the same frames rendered by render_film, 'w'
+     resetting to frame 0, ms a frame; the CLI: render cornell at 256^2,
+     64 spp, backend cuda, whose PNG's brightest pixel must see the
+     light, and bench at 1024^2, 512 spp, whose JSON line is echoed;
 then one JSON line on the kernels (each with its launches on its main
 path, its error against its plain version, its time, the plain version's,
 its bound: the operations these inputs need over the card's published
 fp32 rate) and, last, the device line.  The renders and a JSON record of
-the run go to build/chip_smoke/ (git-ignored).
+the run go to build/chip_smoke/ (git-ignored).  With --phases, only
+phases 1, 2 and the listed ones of 11 and 12 run, and neither JSON line
+is printed.
 """
 
 import contextlib
@@ -181,6 +203,28 @@ CI_SPP = 64
 CI_DEPTH = 4
 CI_TARGET_SPP = 2048
 CI_BAR = 0.15
+
+# Sharded renders and training (phase 11): two gloo ranks on the one card
+# (NCCL refuses two ranks on one GPU).  The 1024^2 Cornell box at the main
+# path's 256 spp; the garden at the beam kernel's main-path launch (512^2,
+# 25 spp), and at 24 spp for the sample split, which needs an even count;
+# the Cornell recovery's width (128^2, 384 spp, depth 5) for the train step.
+SHARD_RANKS = 2
+SHARD_SPLITS = ((2, 1), (1, 2))      # (tile, sample)
+SHARD_GARDEN_SPP = 25
+SHARD_GARDEN_SAMPLE_SPP = 24
+SHARD_TRAIN_STEPS = 3
+SHARD_RTOL = 1e-5        # sample split against one process: sums reordered
+SHARD_TIMEOUT = 600      # seconds for both ranks, start-up included
+# The realtime session and the CLI (phase 12), at the JAX CLI's realtime
+# defaults (256^2, 15 spp a frame) and its bench defaults (1024^2, 512 spp).
+REALTIME_RES = (256, 256)
+REALTIME_SPP = 15
+REALTIME_FRAMES = 4
+CLI_RES = 256
+CLI_SPP = 64
+BENCH_RES = 1024
+BENCH_SPP = 512
 
 
 def check(cond, msg):
@@ -1579,6 +1623,348 @@ def phase_trace_timing(pt, card, regs, sass, record):
     return main
 
 
+def shard_worker(rank, world, store, work):
+    """One rank of phase 11 (spawned; joins the group through ``file://``).
+    Drives the sharded entry points with the launch counts set to 0 just
+    before each render and read just after, and saves its films,
+    parameters and times to ``work`` for the parent to check."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch import inverse
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+    from pathtracer_tpu_torch.parallel import (
+        distributed, make_mesh, make_sharded_train_step,
+        render_film_sharded_beam, render_film_sharded_cuda)
+
+    dev = distributed.initialize(f"file://{store}", world, rank,
+                                 timeout=SHARD_TIMEOUT // 2)
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    meshes = {split: make_mesh(tile=split[0], sample=split[1])
+              for split in SHARD_SPLITS}
+
+    def drive(name, render, module):
+        module.LAUNCHES = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = render()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        torch.save(film.data.cpu(), os.path.join(work, f"{name}_{rank}.pt"))
+        out[name] = {"seconds": seconds, "launches": module.LAUNCHES}
+
+    cam, scene = pt.cornell_box(res=MAIN_RES)
+    render_film_sharded_cuda(meshes[(2, 1)], cam, scene, TIME_SPP, DEPTH)
+    for split, mesh in meshes.items():
+        drive(f"cornell_{split[0]}x{split[1]}", lambda: (
+            render_film_sharded_cuda(mesh, cam, scene, MAIN_SPP, DEPTH)), ttk)
+
+    cam_g, sb = pt.meshes.mesh_garden()
+    cam_g, garden = with_res(cam_g, LARGE_RES), sb.build()
+    t0 = time.perf_counter()
+    bk._accel_for(garden)
+    out["garden_accel_seconds"] = time.perf_counter() - t0
+    render_film_sharded_beam(meshes[(2, 1)], cam_g, garden, 2, DEPTH)
+    for split, mesh in meshes.items():
+        spp = SHARD_GARDEN_SPP if split[1] == 1 else SHARD_GARDEN_SAMPLE_SPP
+        drive(f"garden_{split[0]}x{split[1]}", lambda: (
+            render_film_sharded_beam(mesh, cam_g, garden, spp, DEPTH)), bk)
+
+    cam_t, scene_t = pt.cornell_box(res=DIFF_RES)
+    target = torch.load(os.path.join(work, "target.pt")).to(dev)
+    step, init = make_sharded_train_step(
+        meshes[(2, 1)], cam_t, scene_t, target, DIFF_SPP, DEPTH,
+        param_transform=inverse.to_materials)
+    params = inverse.init_params(scene_t)
+    opt = init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for k in range(SHARD_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, k)
+        losses.append(float(loss))          # waits for the device
+        times.append(time.perf_counter() - t0)
+        torch.save({n: p.detach().cpu() for n, p in params.items()},
+                   os.path.join(work, f"train{k}_{rank}.pt"))
+    out["train"] = {"step_seconds": times, "losses": losses,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def max_rel(got, want):
+    """Largest |got - want| / |want| over the film; a pixel where ``want``
+    is 0 must be 0."""
+    import torch
+    zero = want == 0
+    check(bool((got[zero] == 0).all()), "nonzero where the reference is 0")
+    return float(((got - want).abs()[~zero] / want.abs()[~zero]).max())
+
+
+def phase_sharded(pt, dev, card, record):
+    """Phase 11: the sharded entry points on two gloo ranks sharing the
+    card, against one process."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    import numpy as np
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    print(f"== 11 sharded renders and training: {SHARD_RANKS} gloo ranks "
+          f"on one card (tile x sample splits {SHARD_SPLITS})", flush=True)
+    work = os.path.join(OUT_DIR, "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = fn()
+        torch.cuda.synchronize()
+        return film, time.perf_counter() - t0
+
+    # One process: the films and window sums the ranks must reproduce.
+    cam, scene = pt.cornell_box(res=MAIN_RES)
+    pt.render_film(cam, scene, TIME_SPP, DEPTH, backend="cuda")
+    half = MAIN_SPP // 2
+    ref, single_s = {}, {}
+    ref["cornell_2x1"], single_s["cornell"] = timed(lambda: pt.render_film(
+        cam, scene, MAIN_SPP, DEPTH, backend="cuda").data)
+    ref["cornell_1x2"] = (ttk.render_sum_cuda(cam, scene, 0, half, DEPTH)
+                          + ttk.render_sum_cuda(cam, scene, half, half,
+                                                DEPTH)) / MAIN_SPP
+    cam_g, sb = pt.meshes.mesh_garden()
+    cam_g, garden = with_res(cam_g, LARGE_RES), sb.build()
+    pt.render_film(cam_g, garden, 2, DEPTH, backend="beam")
+    ref["garden_2x1"], single_s["garden"] = timed(lambda: pt.render_film(
+        cam_g, garden, SHARD_GARDEN_SPP, DEPTH, backend="beam").data)
+    spp_g, half_g = SHARD_GARDEN_SAMPLE_SPP, SHARD_GARDEN_SAMPLE_SPP // 2
+    ref["garden_24"], single_s["garden_24"] = timed(lambda: pt.render_film(
+        cam_g, garden, spp_g, DEPTH, backend="beam").data)
+    ref["garden_1x2"] = bk._to_raster(
+        bk.render_tiles_beam(cam_g, garden, 0, half_g, DEPTH)
+        + bk.render_tiles_beam(cam_g, garden, half_g, half_g, DEPTH),
+        *LARGE_RES) / spp_g
+    cam_t, scene_t = pt.cornell_box(res=DIFF_RES)
+    torch.save(pt.render_film(cam_t, scene_t, DIFF_TARGET_SPP, DEPTH,
+                              backend="cuda").data.cpu(),
+               os.path.join(work, "target.pt"))
+    del cam, scene, garden, sb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        shard_worker, args=(SHARD_RANKS, os.path.join(work, "rendezvous"),
+                            work),
+        nprocs=SHARD_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):      # raises if a rank failed
+            check(time.perf_counter() - t0 < SHARD_TIMEOUT,
+                  f"the ranks did not finish in {SHARD_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"{SHARD_RANKS} ranks ran in {ranks_s:.1f} s (spawn, start-up "
+          f"and garden accel build of {ranks[0]['garden_accel_seconds']:.1f}"
+          f" s included); initialize chose backend "
+          f"{[r['backend'] for r in ranks]} on {[r['device'] for r in ranks]}"
+          f"; the ranks share one card, so no speed-up can show: the phase "
+          f"checks the collectives and the window arithmetic", flush=True)
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "initialize must choose gloo for two ranks on one card")
+    out = {"ranks_seconds": ranks_s, "single_seconds": single_s,
+           "ranks": ranks}
+
+    def load(name, r):
+        return torch.load(os.path.join(work, f"{name}_{r}.pt")).to(dev)
+
+    for scene_name, module, key in (("cornell", ttk, "trace"),
+                                    ("garden", bk, "beam")):
+        for tile, sample in SHARD_SPLITS:
+            name = f"{scene_name}_{tile}x{sample}"
+            films = [load(name, r) for r in range(SHARD_RANKS)]
+            check(all(torch.equal(f, films[0]) for f in films),
+                  f"{name}: the ranks' films differ")
+            check(bool(torch.isfinite(films[0]).all())
+                  and float(films[0].mean()) > 0, f"{name}: bad film")
+            check(torch.equal(films[0], ref[name]),
+                  f"{name}: not bit-identical to one process")
+            launches = [r[name]["launches"] for r in ranks]
+            check(all(n > 0 for n in launches),
+                  f"{name}: a rank launched no {key} kernel ({launches})")
+            line = {"seconds": [r[name]["seconds"] for r in ranks],
+                    f"{key}_launches": launches}
+            if sample == 1:
+                what = "bit-identical to one process's render_film"
+                single = single_s[scene_name]
+            else:
+                full = (ref["cornell_2x1"] if scene_name == "cornell"
+                        else ref["garden_24"])
+                rel = max_rel(films[0], full)
+                check(rel <= SHARD_RTOL, f"{name}: relative difference "
+                      f"{rel} from one process's film")
+                line["max_rel"] = rel
+                what = (f"bit-identical to one process's two windows, "
+                        f"max relative difference {rel:.3e} from its film")
+                single = single_s[scene_name if scene_name == "cornell"
+                                  else "garden_24"]
+            print(f"{card}: {name}: {what}; wall {max(line['seconds']):.4f}"
+                  f" s (ranks {[round(t, 4) for t in line['seconds']]}) "
+                  f"against one process's {single:.4f} s; {key} launches "
+                  f"per rank {launches}", flush=True)
+            out[name] = line
+
+    losses = [r["train"]["losses"] for r in ranks]
+    check(all(np.isfinite(x).all() for x in losses)
+          and all(x == losses[0] for x in losses),
+          f"train step losses {losses}")
+    for k in range(SHARD_TRAIN_STEPS):
+        params = [torch.load(os.path.join(work, f"train{k}_{r}.pt"))
+                  for r in range(SHARD_RANKS)]
+        for name in params[0]:
+            check(all(torch.equal(p[name], params[0][name]) for p in params),
+                  f"train step {k}: {name} differs between the ranks")
+    for r in ranks:
+        t = r["train"]
+        print(f"{card}: train step (cornell {DIFF_RES[0]}^2, {DIFF_SPP} "
+              f"spp, depth {DEPTH}, tile split) rank {r['rank']}: seconds "
+              f"a step {[round(x, 4) for x in t['step_seconds']]}, peak "
+              f"device memory {t['peak_bytes'] / 2**30:.3f} GiB, losses "
+              f"{[f'{x:.4e}' for x in t['losses']]}", flush=True)
+    print(f"train step: parameters bit-identical on the {SHARD_RANKS} ranks "
+          f"after each of {SHARD_TRAIN_STEPS} steps", flush=True)
+    record["sharded"] = out
+
+
+def brightest_sees_light(pt, cam, scene, img_u8):
+    """(w, h) of the first brightest pixel of a PNG read back (rows top
+    first); raises unless its centre ray hits an EMIT triangle."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.camera import get_rays
+    from pathtracer_tpu_torch.ops.intersect import intersect_brute
+
+    lum = img_u8.astype(np.float32).mean(axis=-1)[::-1]    # film rows
+    bh, bw = divmod(int(np.argmax(lum)), lum.shape[1])
+    dev = scene.device
+    half = torch.full((1,), 0.5, device=dev)
+    o, d = get_rays(cam, torch.tensor([bw], device=dev),
+                    torch.tensor([bh], device=dev), half, half)
+    _, tid = intersect_brute(o, d, scene.v1, scene.v2, scene.v3)
+    tid = int(tid[0])
+    check(tid >= 0 and int(scene.mat_type[tid]) == pt.EMIT,
+          f"brightest pixel ({bw}, {bh}) sees triangle {tid}, not the light")
+    return bw, bh, float(lum[bh, bw])
+
+
+def phase_realtime_cli(pt, dev, card, record):
+    """Phase 12: the realtime session and the CLI through the kernels."""
+    import io
+    import statistics
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+    from pathtracer_tpu_torch.realtime import RealtimeSession
+
+    print(f"== 12 realtime session ({REALTIME_RES[0]}^2, {REALTIME_SPP} spp "
+          f"a frame, {REALTIME_FRAMES} frames) and CLI", flush=True)
+    out = {}
+    cam_c, cornell = pt.cornell_box(res=REALTIME_RES)
+    cam_g, sb = pt.meshes.mesh_garden()
+    sessions = {"cornell": (cam_c, cornell, "cuda", ttk),
+                "garden105708": (with_res(cam_g, REALTIME_RES), sb.build(),
+                                 "beam", bk)}
+    for name, (cam, scene, backend, module) in sessions.items():
+        sess = RealtimeSession(cam, scene, depth=DEPTH,
+                               frame_samples=REALTIME_SPP)
+        check(sess.backend == backend,
+              f"{name}: session backend {sess.backend!r}, not {backend!r}")
+        module.LAUNCHES = 0
+        times = []
+        for _ in range(REALTIME_FRAMES):
+            t0 = time.perf_counter()
+            img = sess.step()                  # ends in a host copy
+            times.append(time.perf_counter() - t0)
+        launches = module.LAUNCHES
+        check(launches > 0, f"{name}: the session launched no kernel")
+        check(img.shape == (REALTIME_RES[1], REALTIME_RES[0], 3)
+              and np.isfinite(img).all() and img.mean() > 0,
+              f"{name}: bad frame")
+        want = torch.zeros_like(sess._accum)
+        for k in range(REALTIME_FRAMES):
+            cur = pt.render_film(cam, scene, REALTIME_SPP, DEPTH, seed=1 + k,
+                                 backend=backend).data
+            t = 1.0 / (k + 1)
+            want = want * (1.0 - t) + cur * t
+        check(torch.equal(sess._accum, want),
+              f"{name}: the accumulated film is not the running mean")
+        sess.key("w")
+        check(sess.frame == 0 and not bool(sess._accum.any()),
+              f"{name}: 'w' did not reset the accumulation")
+        med = statistics.median(times)
+        # Each render_film call keys its kernel inputs by the scene's byte
+        # fingerprint (a SHA-1 over the host arrays): its share of a frame.
+        hashes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scene.fingerprint()
+            hashes.append(time.perf_counter() - t0)
+        print(f"{card}: realtime {name}: backend {backend!r}, {launches} "
+              f"launches in {REALTIME_FRAMES} frames, ms a frame "
+              f"{[round(t * 1e3, 3) for t in times]} (median "
+              f"{med * 1e3:.3f}); film = running mean of the frames, bit "
+              f"for bit; 'w' resets to frame 0; one fingerprint of the "
+              f"scene {statistics.median(hashes) * 1e3:.3f} ms (host)",
+              flush=True)
+        out[f"realtime {name}"] = {"backend": backend, "launches": launches,
+                                   "frame_seconds": times,
+                                   "fingerprint_seconds": hashes}
+
+    png = os.path.join(OUT_DIR, "chip_smoke_cli_cornell256.png")
+    ttk.LAUNCHES = 0
+    cli.main(["render", "cornell", png, "--res", str(CLI_RES), "--spp",
+              str(CLI_SPP), "--backend", "cuda"])
+    launches = ttk.LAUNCHES
+    check(launches > 0, "cli render launched no trace kernel")
+    img = pt.read_png(png)
+    check(img.shape == (CLI_RES, CLI_RES, 3), f"cli png {img.shape}")
+    cam, scene = pt.cornell_box(res=(CLI_RES, CLI_RES))
+    bw, bh, lum = brightest_sees_light(pt, cam, scene, img)
+    print(f"cli render: {png} ({launches} trace launches), brightest pixel "
+          f"({bw}, {bh}) at {lum:.1f} sees the light", flush=True)
+
+    buf = io.StringIO()
+    ttk.LAUNCHES = 0
+    with contextlib.redirect_stdout(buf):
+        cli.main(["bench", "--res", str(BENCH_RES), "--spp",
+                  str(BENCH_SPP)])
+    line = buf.getvalue().strip().splitlines()[-1]
+    bench = json.loads(line)
+    check(bench["backend"] == "cuda" and bench["rays_per_sec"] > 0
+          and bench["card"] == torch.cuda.get_device_name(0)
+          and ttk.LAUNCHES > 0, f"cli bench line {line}")
+    print(f"{card}: cli bench: {line}", flush=True)
+    out["cli"] = {"render_launches": launches, "brightest": [bw, bh],
+                  "bench": bench, "bench_launches": ttk.LAUNCHES}
+    record["realtime_cli"] = out
+
+
 def main():
     import argparse
     import torch
@@ -1587,6 +1973,10 @@ def main():
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="an older checkout's csrc/: time its beam and "
                          "cluster kernels beside these in phase 9")
+    ap.add_argument("--phases", metavar="N,N",
+                    help="run only these of phases 3-12 (after 1 and 2) "
+                         "and print neither the kernels line nor the "
+                         "device line")
     args = ap.parse_args()
 
     print("== 1 device", flush=True)
@@ -1608,6 +1998,14 @@ def main():
     record = {"card": card}
     os.makedirs(OUT_DIR, exist_ok=True)
     regs, sass, parent = phase_build(record, args.parent_csrc)
+    if args.phases:
+        only = {int(x) for x in args.phases.split(",")}
+        extra = {11: phase_sharded, 12: phase_realtime_cli}
+        check(only <= set(extra), f"--phases takes {sorted(extra)}")
+        for n in sorted(only):
+            extra[n](pt, dev, card, record)
+        print(f"partial run: phases 1, 2, {sorted(only)} passed", flush=True)
+        return
     phase_parity(pt, dev, record)
     launches = phase_main(pt, dev, record)
     trace = phase_trace_timing(pt, card, regs, sass, record)
@@ -1618,6 +2016,8 @@ def main():
     times = phase_timing(pt, dev, card, record, parent)
     cluster_err = max(cluster_err, times["cluster_err"])
     phase_diff(pt, dev, card, record)
+    phase_sharded(pt, dev, card, record)
+    phase_realtime_cli(pt, dev, card, record)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 

@@ -12,6 +12,13 @@ Material recovery from a target film:
     mats, losses = inverse.recover_materials(cam, scene, target, steps=250,
                                              samples=64, depth=4)
 
+A render sharded over the ranks of a process group (``torchrun``):
+
+    from pathtracer_tpu_torch.parallel import distributed, make_mesh
+    from pathtracer_tpu_torch.parallel import render_film_sharded_cuda
+    dev = distributed.initialize()          # from torchrun's environment
+    film = render_film_sharded_cuda(make_mesh(), cam, scene, samples=256)
+
 Large meshes take the same call:
 
     from pathtracer_tpu_torch import meshes
@@ -38,8 +45,12 @@ Module map (each mirrors the module of the same name in pathtracer_tpu):
     ops.cuda.beam_kernel
     render                      L4 drivers
     diff, inverse               differentiable rendering, material recovery
+    parallel                    rank grid, sharded renders and train step
+    realtime                    progressive-accumulation session
+    cli, __main__               ``python -m pathtracer_tpu_torch``
     convert                     numpy arrays -> Camera / Scene / parameters
-    utils                       timer, checkpoints, kernel build, native lib
+    utils                       timer, profiling, checkpoints, kernel build,
+                                native lib
     examples                    runnable example renders
 """
 
@@ -67,6 +78,7 @@ from . import diff, inverse  # noqa: F401
 from .convert import (  # noqa: F401
     camera_from_arrays, scene_from_arrays, material_params_from_arrays,
 )
+from .realtime import RealtimeSession, render_realtime  # noqa: F401
 from .utils.timer import Timer  # noqa: F401
 
 __version__ = "0.1.0"

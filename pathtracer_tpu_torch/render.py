@@ -111,21 +111,30 @@ def _sample_schedule(samples: int, spp_b: int, blocks: int):
     return sched
 
 
-def _scene_sum(scene: Scene) -> float:
-    return float(scene.host_verts()[0].sum() + scene.host_materials()[1].sum())
+def _scene_keys(scene: Scene) -> dict:
+    """The scene's checkpoint keys: the JAX package's float sum, and the
+    byte fingerprint, which the sum is not (an edit of ``v2``, ``v3``,
+    emission, roughness or the material types leaves the sum unchanged)."""
+    return {"scene_sum": float(scene.host_verts()[0].sum()
+                               + scene.host_materials()[1].sum()),
+            "scene_fingerprint": list(scene.fingerprint())}
 
 
 def _resume(checkpoint: Optional[str], meta: dict, film: torch.Tensor,
             verbose: bool):
-    """(film, samples_done) from ``checkpoint`` if it exists."""
+    """(film, samples_done) from ``checkpoint`` if it exists.  A saved meta
+    without ``scene_fingerprint`` was written by the JAX package, and is
+    compared on the keys it has."""
     if checkpoint is None or not os.path.exists(ckpt.checkpoint_path(
             checkpoint)):
         return film, 0
     film_sum, samples_done, saved = ckpt.load_render_checkpoint(checkpoint)
-    if saved != meta:
+    want = (meta if "scene_fingerprint" in saved else
+            {k: v for k, v in meta.items() if k != "scene_fingerprint"})
+    if saved != want:
         raise ValueError(
             f"checkpoint {checkpoint} was written by a different render "
-            f"config:\n  saved: {saved}\n  this:  {meta}")
+            f"config:\n  saved: {saved}\n  this:  {want}")
     if verbose:
         print(f"Resuming at sample {samples_done}/{meta['samples']}.")
     return torch.from_numpy(film_sum).to(film.device), samples_done
@@ -232,7 +241,7 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
     sched = _sample_schedule(samples, spp_b, blocks)
     meta = {"width": width, "height": height, "samples": samples,
             "depth": depth, "seed": seed, "backend": backend,
-            "tile_h": tile_h, "spp_b": spp_b, "scene_sum": _scene_sum(scene)}
+            "tile_h": tile_h, "spp_b": spp_b, **_scene_keys(scene)}
     film = torch.zeros((height, width, 3), dtype=torch.float32,
                        device=scene.device)
     film, samples_done = _resume(checkpoint, meta, film, verbose)
@@ -271,15 +280,15 @@ def _render_windows_checkpointed(backend: str, camera: Camera,
                                  verbose: bool = False,
                                  _abort_after: Optional[int] = None) -> Film:
     """Resumable kernel render ("cuda" or "beam"): windows of one launch's
-    samples, the film sum saved between windows.  The meta keys are the
-    JAX package's, so a checkpoint written by one package loads in the
-    other."""
+    samples, the film sum saved between windows.  The meta holds the JAX
+    package's keys and the scene fingerprint, so a checkpoint the JAX
+    package wrote resumes here (compared without the fingerprint)."""
     width, height = camera.res
     block_spp = max(1, min(samples, trace_kernel.RAYS_PER_CALL
                            // (width * height)))
     meta = {"width": width, "height": height, "samples": samples,
             "depth": depth, "seed": seed, "backend": backend,
-            "block_spp": block_spp, "scene_sum": _scene_sum(scene)}
+            "block_spp": block_spp, **_scene_keys(scene)}
     film = torch.zeros((height, width, 3), dtype=torch.float32,
                        device=scene.device)
     film, samples_done = _resume(checkpoint, meta, film, verbose)

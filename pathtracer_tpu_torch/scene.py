@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ from .linalg import DEG2RAD
 
 _TENSOR_FIELDS = ("v1", "v2", "v3", "mat_type", "albedo", "emit",
                   "roughness")
+_CACHES = {"_host_v": _TENSOR_FIELDS[:3], "_host_m": _TENSOR_FIELDS[3:]}
 
 
 @dataclasses.dataclass
@@ -58,7 +59,8 @@ class Scene:
 
     The host numpy arrays the scene was built from ride along (not
     dataclass fields), so kernel packers and checks read them without a
-    device round trip."""
+    device round trip; after an in-place edit of a tensor they are read
+    again from the device (see ``_fresh``)."""
     v1: torch.Tensor         # (T, 3) float32
     v2: torch.Tensor         # (T, 3)
     v3: torch.Tensor         # (T, 3)
@@ -83,8 +85,8 @@ class Scene:
                    for a in host_v + host_m]
         scene = cls(*tensors, num_tris=int(num_tris),
                     has_specular=bool(np.any(host_m[0] == mat.SPECULAR)))
-        object.__setattr__(scene, "_host_v", host_v)
-        object.__setattr__(scene, "_host_m", host_m)
+        scene._set_cache("_host_v", host_v)
+        scene._set_cache("_host_m", host_m)
         return scene
 
     @property
@@ -95,31 +97,55 @@ class Scene:
     def device(self) -> torch.device:
         return self.v1.device
 
+    # Host caches.  Each group of host copies is stored with the version
+    # counters of the tensors it was read from; an in-place edit of a
+    # tensor (``scene.v1[0] += 0.5``) bumps its counter, and the group is
+    # then re-read from the device.  JAX arrays cannot be edited in place,
+    # so the reference needs no such check.
+
+    def _versions(self, cache: str) -> Tuple[Optional[int], ...]:
+        # Inference tensors keep no version counter (None): a group
+        # holding one is read from the device on every call.
+        return tuple(None if t.is_inference() else t._version
+                     for t in (getattr(self, f) for f in _CACHES[cache]))
+
+    def _set_cache(self, cache: str, arrays) -> None:
+        object.__setattr__(self, cache, arrays)
+        object.__setattr__(self, cache + "_versions", self._versions(cache))
+
+    def _fresh(self, cache: str):
+        """The padded host arrays of ``cache``'s tensors: the cache while
+        no tensor of the group has changed since it was made, else a
+        (synchronising) copy from the device, which becomes the cache."""
+        arrays = getattr(self, cache, None)
+        live = self._versions(cache)
+        if (arrays is None or None in live
+                or getattr(self, cache + "_versions", None) != live):
+            arrays = tuple(getattr(self, f).detach().to("cpu", copy=True)
+                           .numpy() for f in _CACHES[cache])
+            self._set_cache(cache, arrays)
+        return arrays
+
     def to(self, device) -> "Scene":
         new = dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
-        for cache in ("_host_v", "_host_m"):
-            if hasattr(self, cache):
-                object.__setattr__(new, cache, getattr(self, cache))
+        for cache in _CACHES:
+            # Carried only while it matches this scene's tensors; the moved
+            # tensors' own counters are recorded beside it.
+            if (hasattr(self, cache) and getattr(self, cache + "_versions")
+                    == self._versions(cache)):
+                new._set_cache(cache, getattr(self, cache))
         return new
 
     def host_verts(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """UNPADDED (n, 3) host vertex arrays, from the cache if present."""
-        n = self.num_tris
-        cached = getattr(self, "_host_v", None)
-        if cached is None:
-            cached = tuple(a.cpu().numpy() for a in (self.v1, self.v2,
-                                                     self.v3))
-        return tuple(a[:n] for a in cached)
+        """UNPADDED (n, 3) host vertex arrays, from the cache while the
+        vertex tensors are unedited."""
+        return tuple(a[:self.num_tris] for a in self._fresh("_host_v"))
 
     def host_materials(self):
-        """UNPADDED host (mat_type, albedo, emit, roughness) arrays."""
-        n = self.num_tris
-        cached = getattr(self, "_host_m", None)
-        if cached is None:
-            cached = tuple(a.detach().cpu().numpy() for a in (
-                self.mat_type, self.albedo, self.emit, self.roughness))
-        return tuple(a[:n] for a in cached)
+        """UNPADDED host (mat_type, albedo, emit, roughness) arrays, from
+        the cache while the material tensors are unedited."""
+        return tuple(a[:self.num_tris] for a in self._fresh("_host_m"))
 
     def fingerprint(self) -> Tuple[int, str]:
         """Content key over the RAW BYTES of every geometry and material
@@ -135,17 +161,19 @@ class Scene:
     def replace_materials(self, albedo=None, emit=None,
                           roughness=None) -> "Scene":
         """The scene with swapped material tensors (the differentiable
-        path).  The geometry is unchanged, so the host vertex cache stays;
-        the host material cache does not, since it would describe the old
-        materials to every packer and key that reads ``host_materials``."""
+        path).  The geometry tensors are shared, so the host vertex cache
+        stays, with their version counters; the host material cache does
+        not, since it would describe the old materials to every packer and
+        key that reads ``host_materials``."""
         new = dataclasses.replace(
             self,
             albedo=self.albedo if albedo is None else albedo,
             emit=self.emit if emit is None else emit,
             roughness=self.roughness if roughness is None else roughness)
-        cached = getattr(self, "_host_v", None)
-        if cached is not None:
-            object.__setattr__(new, "_host_v", cached)
+        if hasattr(self, "_host_v"):
+            object.__setattr__(new, "_host_v", self._host_v)
+            object.__setattr__(new, "_host_v_versions",
+                               self._host_v_versions)
         return new
 
 

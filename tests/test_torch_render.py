@@ -96,6 +96,32 @@ def test_checkpoint_resume_is_bit_identical(tmp_path, monkeypatch, backend):
         run(depth=4, checkpoint=path)
 
 
+def test_checkpoint_refuses_another_scene(tmp_path):
+    """Two specular Cornell boxes differ in roughness only, which the
+    JAX package's float-sum key does not see; the fingerprint does."""
+    path = str(tmp_path / "ck.npz")
+    cam, scene = tpt.modified_cornell(0.05, res=(8, 8), device="cpu")
+    tpt.render_film(cam, scene, 4, 2, backend="brute", checkpoint=path)
+    _, other = tpt.modified_cornell(0.8, res=(8, 8), device="cpu")
+    for a, b in zip(other.host_verts() + other.host_materials()[1:2],
+                    scene.host_verts() + scene.host_materials()[1:2]):
+        np.testing.assert_array_equal(a, b)   # the float-sum key's arrays
+    with pytest.raises(ValueError, match="different render config"):
+        tpt.render_film(cam, other, 4, 2, backend="brute", checkpoint=path)
+
+
+def test_jax_written_checkpoint_resumes(tmp_path):
+    """A checkpoint the JAX package wrote has no fingerprint; it is held
+    to the keys it has and resumes."""
+    (jcam, jscene), (cam, scene) = scene_pair("corner", (8, 8))
+    path = str(tmp_path / "jax.npz")
+    want = jrender.render_film(jcam, jscene, 4, 2, backend="brute",
+                               checkpoint=path)
+    assert "scene_fingerprint" not in ckpt.load_render_checkpoint(path)[2]
+    got = tpt.render_film(cam, scene, 4, 2, backend="brute", checkpoint=path)
+    np.testing.assert_array_equal(as_np(got.data), np.asarray(want.data))
+
+
 def test_render_normals_matches_jax():
     (jcam, jscene), (tcam, tscene) = scene_pair("cornell", (24, 16))
     want = jrender.render_normals(jcam, jscene)
@@ -144,7 +170,10 @@ def test_package_never_imports_jax():
         "        'pathtracer_tpu_torch.examples.modified_cornell',\n"
         "        'pathtracer_tpu_torch.utils.native',\n"
         "        'pathtracer_tpu_torch.utils.build',\n"
-        "        'pathtracer_tpu_torch.utils.checkpoint']\n"
+        "        'pathtracer_tpu_torch.utils.checkpoint',\n"
+        "        'pathtracer_tpu_torch.utils.profiling',\n"
+        "        'pathtracer_tpu_torch.parallel',\n"
+        "        'pathtracer_tpu_torch.realtime', 'pathtracer_tpu_torch.cli']\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"

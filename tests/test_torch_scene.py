@@ -79,6 +79,63 @@ def test_scene_to_keeps_host_caches():
         np.testing.assert_array_equal(a, b)
 
 
+def test_in_place_edit_refreshes_host_caches():
+    """An in-place edit of a scene tensor reaches every host cache and key:
+    the fingerprint, the host arrays, the Plücker rows and the cached
+    accels (the kernels would otherwise render the old scene)."""
+    from pathtracer_tpu_torch import clusters as tclusters
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    cam, scene = tpt.corner_scene(res=(8, 8), device="cpu")
+    fp0 = scene.fingerprint()
+    rows0 = ttk._plucker_rows(scene, cam)
+    cache = []
+    accel0 = tclusters.cached_accel(cache, scene, tclusters.build_clusters)
+    assert tclusters.cached_accel(cache, scene,
+                                  tclusters.build_clusters) is accel0
+    with torch.no_grad():
+        scene.v1[0] += 0.5
+        scene.albedo[0] *= 0.5
+    assert scene.fingerprint() != fp0
+    n = scene.num_tris
+    np.testing.assert_array_equal(scene.host_verts()[0], as_np(scene.v1)[:n])
+    np.testing.assert_array_equal(scene.host_materials()[1],
+                                  as_np(scene.albedo)[:n])
+    rows = ttk._plucker_rows(scene, cam)
+    assert rows is not rows0
+    np.testing.assert_array_equal(
+        as_np(rows), ttk._triangle_params_plucker(scene, cam.host_pos()))
+    assert tclusters.cached_accel(cache, scene,
+                                  tclusters.build_clusters) is not accel0
+    # Undoing the edit exactly gives back SceneBuilder's bytes and key.
+    with torch.no_grad():
+        scene.v1[0] -= 0.5
+        scene.albedo[0] *= 2.0
+    assert scene.fingerprint() == fp0
+    # A moved scene records its own tensors' counters.
+    moved = scene.to("cpu")
+    with torch.no_grad():
+        moved.emit[2] *= 0.5
+        moved.v3[1] += 1.0
+    assert moved.fingerprint() != fp0
+    np.testing.assert_array_equal(moved.host_materials()[2],
+                                  as_np(moved.emit)[:n])
+    np.testing.assert_array_equal(moved.host_verts()[2], as_np(moved.v3)[:n])
+
+
+def test_inference_mode_scene_reads_its_tensors():
+    """Inference tensors keep no version counter: such a scene's host
+    arrays and key come from its tensors on every call."""
+    _, ref = tpt.corner_scene(res=(8, 8), device="cpu")
+    with torch.inference_mode():
+        _, scene = tpt.corner_scene(res=(8, 8), device="cpu")
+        assert scene.fingerprint() == ref.fingerprint()
+        scene.v2[1] += 1.0
+        assert scene.fingerprint() != ref.fingerprint()
+        np.testing.assert_array_equal(scene.host_verts()[1],
+                                      as_np(scene.v2)[:scene.num_tris])
+
+
 def test_convert_carries_jax_scene_unchanged():
     jcam, jscene = jpt.modified_cornell(0.3, res=(16, 16))
     cam, scene = carry(jcam, jscene)
