@@ -100,12 +100,27 @@ not 0:
      resetting to frame 0, ms a frame; the CLI: render cornell at 256^2,
      64 spp, backend cuda, whose PNG's brightest pixel must see the
      light, and bench at 1024^2, 512 spp, whose JSON line is echoed;
+ 13. the wavefront pipeline (ops/wavefront.py): (a) cornell_box and
+     modified_cornell(0.05) at 64^2, 4 spp, depth 5, brute: against
+     render_film's brute backend within atol 1e-5, against the megakernel
+     within the film bar, two runs and compact_every=1 against 0 bit for
+     bit; (b) sphere_in_box(50, 100) at 128^2, 4 spp, depth 5, backend
+     "auto", which must take the cluster kernel: its launches, counted
+     from 0, equal the live bounces (printed on the "wavefront main path"
+     line), the film bit-identical to the plain intersector's and within
+     the film bar of render_film's cluster backend; (c) the median wall of
+     3 runs (after an untimed one, which records the share of rays alive
+     after each bounce of block 0), ray segments/s, launches, any-alive
+     syncs and peak memory of Cornell 512^2, 64 spp at depth 5 and 16:
+     the wavefront (auto, cluster, cluster with compaction) against the
+     megakernel; sphere_in_box(50, 100) at 512^2, 16 spp: the cluster
+     wavefront against render_film's beam and cluster backends;
 then one JSON line on the kernels (each with its launches on its main
 path, its error against its plain version, its time, the plain version's,
 its bound: the operations these inputs need over the card's published
 fp32 rate) and, last, the device line.  The renders and a JSON record of
 the run go to build/chip_smoke/ (git-ignored).  With --phases, only
-phases 1, 2 and the listed ones of 11 and 12 run, and neither JSON line
+phases 1, 2 and the listed ones of 11 to 13 run, and neither JSON line
 is printed.
 """
 
@@ -225,6 +240,21 @@ CLI_RES = 256
 CLI_SPP = 64
 BENCH_RES = 1024
 BENCH_SPP = 512
+# The wavefront pipeline (phase 13).  (a) Parity at 64^2, 4 spp, depth 5
+# against render_film's brute backend at the JAX test's bar
+# (tests/test_wavefront.py: atol 1e-5); (b) sphere9812 at 128^2, 4 spp:
+# the cluster kernel on this path; (c) the JAX bench's wavefront cells
+# (bench.py:238-244: Cornell 512^2, 64 spp, depth 5 and 16) and
+# sphere9812 at 512^2, 16 spp.
+WF_RES = (64, 64)
+WF_SPP = 4
+WF_ATOL = 1e-5
+WF_CLUSTER_RES = (128, 128)
+WF_TIME_RES = (512, 512)
+WF_TIME_SPP = 64
+WF_DEPTHS = (5, 16)
+WF_SPHERE_SPP = 16
+WF_RUNS = 3              # timed runs of each render, after one untimed
 
 
 def check(cond, msg):
@@ -1965,6 +1995,242 @@ def phase_realtime_cli(pt, dev, card, record):
     record["realtime_cli"] = out
 
 
+def wavefront_counts(wf, ck, bk, ttk, reset=False):
+    """{counter: value} of the wavefront's and the kernels' counters;
+    ``reset`` sets them all to 0 first."""
+    mods = {"cluster_launches": (ck, "LAUNCHES"),
+            "beam_launches": (bk, "LAUNCHES"),
+            "trace_launches": (ttk, "LAUNCHES"),
+            "syncs": (wf, "SYNCS"), "live_bounces": (wf, "LIVE_BOUNCES"),
+            "skipped": (wf, "SKIPPED")}
+    if reset:
+        for mod, name in mods.values():
+            setattr(mod, name, 0)
+    return {k: getattr(mod, name) for k, (mod, name) in mods.items()}
+
+
+def time_wavefront_cell(card, label, fn, segments, depth, record_shares):
+    """One untimed run of ``fn`` (recording the share of rays alive after
+    each bounce stage of block 0), then WF_RUNS host-clock runs ended by
+    torch.cuda.synchronize: the median wall, the ray segments/s, the
+    counters of one run and the peak device memory."""
+    import statistics
+    import torch
+    from pathtracer_tpu_torch.ops import wavefront as wf
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    shares = []
+    if record_shares:
+        stage = wf.bounce_stage
+
+        def recorded(*args, **kw):
+            contrib, queue = stage(*args, **kw)
+            shares.append(queue["alive"].float().mean())
+            return contrib, queue
+
+        with swapped(wf, "bounce_stage", recorded):
+            first = fn()
+    else:
+        first = fn()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(first).all()) and float(first.mean()) > 0,
+          f"{label}: non-finite or black film")
+    # Block 0's stages: the first ``depth``, or up to its emptied queue.
+    block0 = []
+    for x in shares:
+        block0.append(round(float(x), 4))
+        if len(block0) == depth or block0[-1] == 0.0:
+            break
+    wavefront_counts(wf, ck, bk, ttk, reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(WF_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = {k: v / WF_RUNS for k, v in wavefront_counts(
+        wf, ck, bk, ttk).items()}
+    peak = torch.cuda.max_memory_allocated()
+    wall = statistics.median(walls)
+    out = {"wall_s": wall, "runs_s": walls, "segments_per_s":
+           segments / wall, "counts_per_run": counts, "peak_bytes": peak,
+           "alive_after_bounce_block0": block0}
+    nonzero = ", ".join(f"{k} {v:g}" for k, v in counts.items() if v)
+    print(f"{card}: {label}: {wall * 1e3:.2f} ms wall (runs "
+          f"{[round(x * 1e3, 2) for x in walls]} ms), "
+          f"{segments / wall:.4e} ray segments/s; a run: {nonzero or 'none'}; "
+          f"peak {peak / 2**30:.3f} GiB"
+          + (f"; alive after each bounce of block 0: {block0}"
+             if block0 else ""),
+          flush=True)
+    return out
+
+
+def profile_render(card, label, fn):
+    """One run of ``fn`` under torch.profiler: the wall, the device busy
+    share, the device launches and the device time of the kernel
+    families (names cut to 60 characters: the instances of one template
+    fall into one family)."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # The device's own events: the host-side operators carry their
+    # kernels' device time too, and would count it twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    families = collections.Counter()
+    for e in events:
+        families[e.key[:60]] += e.self_device_time_total
+    out = {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+           "device_busy_share": device_us / wall_us,
+           "device_launches": sum(e.count for e in events),
+           "top_ms": {k: us / 1e3 for k, us in families.most_common(6)}}
+    top = "; ".join(f"{k} {v:.2f}" for k, v in out["top_ms"].items())
+    print(f"{card}: {label} under torch.profiler: {out['wall_ms']:.2f} ms "
+          f"wall, device busy {out['device_ms']:.2f} ms "
+          f"({out['device_busy_share']:.2%}), {out['device_launches']} "
+          f"device launches; top kernel families (ms): {top}", flush=True)
+    return out
+
+
+def phase_wavefront(pt, dev, card, record):
+    """Phase 13: the wavefront pipeline (ops/wavefront.py) on the card."""
+    import torch
+    from pathtracer_tpu_torch.ops import wavefront as wf
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    print("== 13 wavefront pipeline", flush=True)
+    out = {"parity": {}}
+    # (a) Parity on the card.
+    for name, make in (("cornell", lambda: pt.cornell_box(res=WF_RES)),
+                       ("specular", lambda: pt.modified_cornell(
+                           0.05, res=WF_RES))):
+        cam, scene = make()
+        film = pt.render_film(cam, scene, WF_SPP, DEPTH,
+                              backend="wavefront").data
+        again = wf.render_wavefront(cam, scene, WF_SPP, DEPTH,
+                                    backend="brute")
+        compacted = wf.render_wavefront(cam, scene, WF_SPP, DEPTH,
+                                        backend="brute", compact_every=1)
+        brute = pt.render_film(cam, scene, WF_SPP, DEPTH,
+                               backend="brute").data
+        kern = pt.render_film(cam, scene, WF_SPP, DEPTH,
+                              backend="cuda").data
+        torch.cuda.synchronize()
+        brute_err = float((film - brute).abs().max())
+        kern_err, kern_share = film_diff(film, kern)
+        print(f"{name} {WF_RES[0]}^2, {WF_SPP} spp, depth {DEPTH}, brute: "
+              f"against render_film brute max abs {brute_err:.3e} (bar "
+              f"{WF_ATOL}); against backend='cuda' max abs {kern_err:.3e}, "
+              f"pixels beyond {FILM_ATOL}: {kern_share:.4%}; two runs "
+              f"bit-identical: {torch.equal(film, again)}; compact_every=1 "
+              f"bit-identical: {torch.equal(film, compacted)}", flush=True)
+        check(float(film.mean()) > 0, f"wavefront {name}: black film")
+        check(brute_err <= WF_ATOL,
+              f"wavefront {name}: {brute_err} from render_film brute")
+        check(kern_share <= MAX_FLIP_SHARE,
+              f"wavefront {name}: {kern_share:.4%} of pixels from the "
+              f"kernel's film")
+        check(torch.equal(film, again), f"wavefront {name}: two runs differ")
+        check(torch.equal(film, compacted),
+              f"wavefront {name}: compact_every=1 differs from 0")
+        out["parity"][name] = {"brute_max_abs": brute_err,
+                               "cuda_max_abs": kern_err,
+                               "cuda_share": kern_share}
+
+    # (b) The cluster kernel on this path, counted from 0.
+    _, sb = pt.meshes.sphere_in_box(50, 100)
+    sphere = sb.build()
+    cam = lit_sphere_camera(pt, WF_CLUSTER_RES)
+    counts = wavefront_counts(wf, ck, bk, ttk, reset=True)
+    film = wf.render_wavefront(cam, sphere, WF_SPP, DEPTH)
+    torch.cuda.synchronize()
+    counts = wavefront_counts(wf, ck, bk, ttk)
+    check(counts["cluster_launches"] > 0
+          and counts["cluster_launches"] == counts["live_bounces"],
+          f"wavefront sphere9812 (auto): {counts}, not one cluster launch "
+          f"a live bounce")
+    with swapped(ck, "intersect_clusters",
+                 lambda o, d, cs: ck.intersect_clusters_reference(o, d, cs)):
+        plain = wf.render_wavefront(cam, sphere, WF_SPP, DEPTH,
+                                    backend="cluster")
+    tile = pt.render_film(cam, sphere, WF_SPP, DEPTH,
+                          backend="cluster").data
+    torch.cuda.synchronize()
+    tile_err, tile_share = film_diff(film, tile)
+    print(f"wavefront main path: sphere9812 ({sphere.num_tris} triangles) "
+          f"{WF_CLUSTER_RES[0]}^2, {WF_SPP} spp, depth {DEPTH}, "
+          f"backend='auto': {counts['cluster_launches']} cluster launches, "
+          f"{counts['live_bounces']} live bounces, {counts['syncs']} syncs, "
+          f"{counts['skipped']} skipped; bit-identical to the plain "
+          f"intersector: {torch.equal(film, plain)}; against render_film "
+          f"cluster max abs {tile_err:.3e}, pixels beyond {FILM_ATOL}: "
+          f"{tile_share:.4%}", flush=True)
+    check(float(film.mean()) > 0, "wavefront sphere9812: black film")
+    check(torch.equal(film, plain),
+          "wavefront sphere9812: kernel film differs from the plain one")
+    check(tile_share <= MAX_FLIP_SHARE,
+          f"wavefront sphere9812: {tile_share:.4%} of pixels from "
+          f"render_film cluster")
+    out["main"] = {"counts": counts, "tile_max_abs": tile_err,
+                   "tile_share": tile_share}
+
+    # (c) Timing against the megakernel and the large-scene backends.
+    cells = {}
+    cam, cornell = pt.cornell_box(res=WF_TIME_RES)
+    npix = WF_TIME_RES[0] * WF_TIME_RES[1]
+    for depth in WF_DEPTHS:
+        segs = npix * WF_TIME_SPP * depth
+        runs = (
+            ("wavefront auto (brute)", True, lambda d=depth: pt.render_film(
+                cam, cornell, WF_TIME_SPP, d, backend="wavefront").data),
+            ("wavefront cluster", True, lambda d=depth: wf.render_wavefront(
+                cam, cornell, WF_TIME_SPP, d, backend="cluster")),
+            ("wavefront cluster, compact_every=1", True,
+             lambda d=depth: wf.render_wavefront(
+                 cam, cornell, WF_TIME_SPP, d, backend="cluster",
+                 compact_every=1)),
+            ("megakernel (render_film cuda)", False,
+             lambda d=depth: pt.render_film(cam, cornell, WF_TIME_SPP, d,
+                                            backend="cuda").data))
+        for label, shares, fn in runs:
+            key = f"cornell512 {WF_TIME_SPP} spp depth {depth}: {label}"
+            cells[key] = time_wavefront_cell(card, key, fn, segs, depth,
+                                             shares)
+        key = f"cornell512 {WF_TIME_SPP} spp depth {depth}: wavefront cluster"
+        cells[key]["profile"] = profile_render(card, key, runs[1][2])
+    cam = with_res(pt.meshes.sphere_in_box(50, 100)[0], WF_TIME_RES)
+    segs = npix * WF_SPHERE_SPP * DEPTH
+    for label, shares, fn in (
+            ("wavefront cluster", True, lambda: wf.render_wavefront(
+                cam, sphere, WF_SPHERE_SPP, DEPTH, backend="cluster")),
+            ("render_film beam", False, lambda: pt.render_film(
+                cam, sphere, WF_SPHERE_SPP, DEPTH, backend="beam").data),
+            ("render_film cluster", False, lambda: pt.render_film(
+                cam, sphere, WF_SPHERE_SPP, DEPTH, backend="cluster").data)):
+        key = f"sphere9812 {WF_SPHERE_SPP} spp depth {DEPTH}: {label}"
+        cells[key] = time_wavefront_cell(card, key, fn, segs, DEPTH,
+                                         shares)
+    out["cells"] = cells
+    record["wavefront"] = out
+
+
 def main():
     import argparse
     import torch
@@ -1974,7 +2240,7 @@ def main():
                     help="an older checkout's csrc/: time its beam and "
                          "cluster kernels beside these in phase 9")
     ap.add_argument("--phases", metavar="N,N",
-                    help="run only these of phases 3-12 (after 1 and 2) "
+                    help="run only these of phases 11-13 (after 1 and 2) "
                          "and print neither the kernels line nor the "
                          "device line")
     args = ap.parse_args()
@@ -2000,7 +2266,8 @@ def main():
     regs, sass, parent = phase_build(record, args.parent_csrc)
     if args.phases:
         only = {int(x) for x in args.phases.split(",")}
-        extra = {11: phase_sharded, 12: phase_realtime_cli}
+        extra = {11: phase_sharded, 12: phase_realtime_cli,
+                 13: phase_wavefront}
         check(only <= set(extra), f"--phases takes {sorted(extra)}")
         for n in sorted(only):
             extra[n](pt, dev, card, record)
@@ -2018,6 +2285,7 @@ def main():
     phase_diff(pt, dev, card, record)
     phase_sharded(pt, dev, card, record)
     phase_realtime_cli(pt, dev, card, record)
+    phase_wavefront(pt, dev, card, record)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 

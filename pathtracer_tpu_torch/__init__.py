@@ -40,6 +40,7 @@ Module map (each mirrors the module of the same name in pathtracer_tpu):
     bvh, clusters               SAH BVH, cluster set and beam accel builders
     meshes, obj_loader          procedural meshes, OBJ/MTL import
     ops.intersect, ops.trace    plain PyTorch intersection and bounce loop
+    ops.wavefront               staged bounce pipeline over ray queues
     ops.cuda.trace_kernel       the kernels' wrappers and plain versions
     ops.cuda.cluster_kernel
     ops.cuda.beam_kernel

@@ -1,1 +1,2 @@
-"""Device ops: intersection, the bounce loop and the CUDA kernels."""
+"""Device ops: intersection, the bounce loop, the wavefront pipeline and
+the CUDA kernels."""

@@ -98,6 +98,15 @@ def park_pose(scene: Scene):
     return (tuple(float(x) + off for x in hi), (1.0, 0.0, 0.0))
 
 
+def park_tensors(pose, shape, device):
+    """The (origin, direction) of a :func:`park_pose`, each broadcast to
+    ``shape + (3,)`` on ``device``.  Filled on the device: a host-to-device
+    copy would synchronise."""
+    return tuple(torch.stack([
+        torch.full(shape, float(x), dtype=torch.float32, device=device)
+        for x in p], dim=-1) for p in pose)
+
+
 def trace_rays(table: torch.Tensor, intersect: IntersectFn,
                ray_o: torch.Tensor, ray_d: torch.Tensor, depth: int,
                rng_state: torch.Tensor, has_specular: bool = True,
@@ -118,11 +127,8 @@ def trace_rays(table: torch.Tensor, intersect: IntersectFn,
     whose path is alive: the ray segments a path tracer must trace.
     """
     if park_pose is not None:
-        # Filled on the device: a host-to-device copy would synchronise.
-        park_o, park_d = (torch.stack([
-            torch.full(ray_o.shape[:-1], float(x), dtype=torch.float32,
-                       device=ray_o.device) for x in p], dim=-1)
-            for p in park_pose)
+        park_o, park_d = park_tensors(park_pose, ray_o.shape[:-1],
+                                      ray_o.device)
     thr = torch.ones_like(ray_o)
     rad = torch.zeros_like(ray_o)
     alive = torch.ones(ray_o.shape[:-1], dtype=torch.bool,

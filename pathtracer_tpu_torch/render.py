@@ -14,13 +14,17 @@ Backends:
     PyTorch (ops/intersect.intersect_bvh).
   * ``"brute"`` — the tile driver over dense Möller–Trumbore against every
     triangle (ops/intersect.intersect_brute).
+  * ``"wavefront"`` — the staged bounce pipeline (ops/wavefront.py) with
+    its own ``"auto"`` intersector: brute up to ``BRUTE_MAX`` padded
+    triangles, above that the CUDA cluster kernel (``"bvh"`` on a CPU
+    scene).  Not resumable.
 On a CPU scene each kernel's wrapper takes its plain version.
 
 ``"auto"`` on a CUDA scene picks ``"cuda"`` for up to ``BRUTE_MAX`` padded
 triangles, above that ``"beam"``, or ``"cluster"`` with a warning when the
 beam accel cannot represent the scene; it never picks a plain backend for a
-CUDA scene.  On a CPU scene it picks ``"brute"``, or ``"bvh"`` above
-``BRUTE_MAX``.
+CUDA scene, nor the wavefront.  On a CPU scene it picks ``"brute"``, or
+``"bvh"`` above ``BRUTE_MAX``.
 
 RNG: one independent hash stream per (pixel, sample), consumed jitter
 first, then the bounces.  Sample windows therefore sum exactly, which the
@@ -53,7 +57,7 @@ BRUTE_MAX = 512                  # max padded triangle count for the dense path
 TARGET_RAYS_PER_PASS = 1 << 21   # rays traced per tile pass
 TARGET_RAYS_PER_CALL = 1 << 24   # rays per schedule entry
 
-BACKENDS = ("brute", "cuda", "bvh", "cluster", "beam")
+BACKENDS = ("brute", "cuda", "bvh", "cluster", "beam", "wavefront")
 
 
 def _plan(width: int, height: int, samples: int, n_tris: int,
@@ -232,6 +236,16 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
             backend, camera, scene, samples, depth, seed=seed,
             checkpoint=checkpoint, checkpoint_every=checkpoint_every,
             verbose=verbose, _abort_after=_abort_after)
+    if backend == "wavefront":
+        if checkpoint is not None:
+            raise ValueError(
+                "backend='wavefront' does not support checkpointing (the "
+                "render keeps no host-visible sample boundary to save at); "
+                "use backend='cuda', 'beam' or the tile backends for "
+                "resumable renders")
+        from .ops.wavefront import render_wavefront
+        return Film(camera.res, data=render_wavefront(
+            camera, scene, samples, depth, bvh=bvh, seed=seed))
 
     width, height = camera.res
     tile_h, spp_b, blocks = _plan(width, height, samples, scene.padded_size,

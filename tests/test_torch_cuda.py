@@ -600,3 +600,43 @@ def test_recover_materials_runs_on_the_card(cuda_device):
         optimize=("albedo",))
     assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
     assert all(v.device.type == "cuda" for v in mats.values())
+
+
+@pytest.mark.cuda
+def test_wavefront_cluster_matches_plain_intersector(cuda_device,
+                                                     monkeypatch):
+    """The wavefront's "cluster" film equals the same render with the
+    plain cluster intersector, bit for bit; one kernel launch a live
+    bounce."""
+    from pathtracer_tpu_torch.ops import wavefront as twf
+
+    cam, scene = _lit_sphere(cuda_device, (32, 32))
+    launches, live = tck.LAUNCHES, twf.LIVE_BOUNCES
+    film = twf.render_wavefront(cam, scene, 4, 5, backend="cluster")
+    torch.cuda.synchronize()
+    assert tck.LAUNCHES - launches == twf.LIVE_BOUNCES - live > 0
+    with monkeypatch.context() as m:
+        m.setattr(tck, "intersect_clusters",
+                  lambda o, d, cs: tck.intersect_clusters_reference(o, d, cs))
+        plain = twf.render_wavefront(cam, scene, 4, 5, backend="cluster")
+    torch.cuda.synchronize()
+    assert float(film.mean()) > 0.0 and torch.equal(film, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["brute", "cluster"])
+def test_wavefront_compaction_is_bit_identical(cuda_device, backend):
+    """Contributions go back to their block slots before the film sum, so
+    compact_every=1 gives the film of compact_every=0 bit for bit on the
+    card too."""
+    from pathtracer_tpu_torch.ops import wavefront as twf
+
+    if backend == "brute":
+        cam, scene = _on(cuda_device, "cornell", (64, 64))
+    else:
+        cam, scene = _lit_sphere(cuda_device, (32, 32))
+    base = twf.render_wavefront(cam, scene, 4, 5, backend=backend)
+    film = twf.render_wavefront(cam, scene, 4, 5, backend=backend,
+                                compact_every=1)
+    torch.cuda.synchronize()
+    assert float(base.mean()) > 0.0 and torch.equal(film, base)
