@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of pathtracer_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent-csrc DIR] [--phases 11,12]
+    python3 chip_smoke.py [--parent-csrc DIR] [--phases 11,14]
 
 Phases, each printed as it runs; any failure raises and the exit code is
 not 0:
@@ -9,7 +9,8 @@ not 0:
      power limit;
   2. build: compiles csrc/*.cu with nvcc for sm_90a (with --parent-csrc,
      an older checkout's beam_kernel.cu and cluster_kernel.cu at the same
-     time), prints the time and the registers, stack and spill of every
+     time), prints the time and, read from the built library with
+     cuobjdump, the registers, stack and local-memory stores of every
      kernel instance, and, from cuobjdump's SASS, the instructions of each
      trace-kernel instance's triangle loop per test and of each beam and
      cluster instance's tree-walk loop per node;
@@ -115,12 +116,18 @@ not 0:
      the wavefront (auto, cluster, cluster with compaction) against the
      megakernel; sphere_in_box(50, 100) at 512^2, 16 spp: the cluster
      wavefront against render_film's beam and cluster backends;
+ 14. the benchmark: bench_torch.py over every cell with one timed run
+     each (--repeats 1 --refconfig-repeats 1), in a process of its own,
+     its JSON lines read from build/chip_smoke/bench_torch.json; every
+     check of every cell must hold, but a beam cell's golden bar on its
+     own film, which is reported while its converged render holds the
+     bar (bench_verdict);
 then one JSON line on the kernels (each with its launches on its main
 path, its error against its plain version, its time, the plain version's,
 its bound: the operations these inputs need over the card's published
 fp32 rate) and, last, the device line.  The renders and a JSON record of
 the run go to build/chip_smoke/ (git-ignored).  With --phases, only
-phases 1, 2 and the listed ones of 11 to 13 run, and neither JSON line
+phases 1, 2 and the listed ones of 11 to 14 run, and neither JSON line
 is printed.
 """
 
@@ -257,9 +264,14 @@ WF_SPHERE_SPP = 16
 WF_RUNS = 3              # timed runs of each render, after one untimed
 
 
+class CheckFailed(RuntimeError):
+    """A check of this script failed (bench_torch.py counts it against the
+    cell that called the helper)."""
+
+
 def check(cond, msg):
     if not cond:
-        raise RuntimeError(f"chip_smoke: {msg}")
+        raise CheckFailed(f"chip_smoke: {msg}")
 
 
 def film_diff(got, want):
@@ -276,26 +288,22 @@ def bound_ms(ops):
     return ops / FP32_OPS_PER_S * 1e3
 
 
-def ptxas_table(log):
-    """{mangled kernel name: (registers, stack bytes, spill store bytes)}
-    from nvcc's -Xptxas -v output."""
+def resource_table(usage, sass):
+    """{mangled kernel name: (registers, stack bytes, local-memory stores)}
+    of a built library: registers and stack frame from ``cuobjdump
+    --dump-resource-usage`` (``usage``), and the STL instructions of each
+    function in its SASS (``sass``): spills are stored there, so 0 means
+    no spill.  Read from the library itself, the table does not depend on
+    which process built it."""
     import re
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w]+)'?", line)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
-                      line)
-        if m and name:
-            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)),
-                                                   int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
+    stores = {name: sum(bool(re.search(r"\bSTL", o)) for _, o in code)
+              for name, code in _sass_functions(sass)}
+    out = {}
+    for name, regs, stack in re.findall(
+            r"Function\s+([\w$.]+)\s*:\s*\n\s*REG:(\d+)\s+STACK:(\d+)",
+            usage):
+        out[name] = (int(regs), int(stack), stores.get(name))
+    return out
 
 
 def trace_instance(name):
@@ -480,6 +488,30 @@ def tie_scene(pt, dev, res=(64, 64)):
     return cam, scene, bvh
 
 
+def sync(x):
+    """Waits for the card when ``x`` lies on it (the helpers below also
+    run on CPU tensors, where the wrappers take their plain versions)."""
+    import torch
+    if x.is_cuda:
+        torch.cuda.synchronize()
+
+
+def camera_rays(cam, n, gen):
+    """(origins, directions) of ``n`` camera rays of ``cam`` through
+    random pixels with random jitter, drawn from the numpy generator
+    ``gen``, on the camera's device."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.camera import get_rays
+
+    dev = cam.device
+    w = torch.from_numpy(gen.integers(0, cam.width, n)).to(dev)
+    h = torch.from_numpy(gen.integers(0, cam.height, n)).to(dev)
+    u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
+    o, d = get_rays(cam, w, h, u[0], u[1])
+    return o.contiguous(), d.contiguous()
+
+
 def hold_clusters(name, o, d, cs_d, n_ref):
     """The cluster kernel on the whole ray batch, without (the default) and
     with the ray sort, held against the plain version on its first
@@ -492,7 +524,7 @@ def hold_clusters(name, o, d, cs_d, n_ref):
     t_k, tid_k = ck.intersect_clusters(o, d, cs_d)
     t_u, tid_u = ck.intersect_clusters(o, d, cs_d, sort_rays=True)
     t_p, tid_p = ck.intersect_clusters_reference(o[:n_ref], d[:n_ref], cs_d)
-    torch.cuda.synchronize()
+    sync(t_k)
     check(bool(torch.isfinite(t_k).all()), f"{name}: non-finite t")
     hit = tid_p >= 0
     t_s, tid_s = t_k[:n_ref], tid_k[:n_ref]
@@ -543,7 +575,6 @@ def phase_cluster(pt, dev, record):
     """Phase 6; returns the largest |t| difference on hits."""
     import numpy as np
     import torch
-    from pathtracer_tpu_torch.camera import get_rays
 
     print("== 6 cluster kernel against its plain version "
           "(sphere_in_box(50, 100))", flush=True)
@@ -560,14 +591,12 @@ def phase_cluster(pt, dev, record):
     cs_d = cs.to(dev)
     gen = np.random.default_rng(6)
     n = CLUSTER_RAYS
-    w = torch.from_numpy(gen.integers(0, LARGE_RES[0], n)).to(dev)
-    h = torch.from_numpy(gen.integers(0, LARGE_RES[1], n)).to(dev)
-    u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
-    cam_o, cam_d = get_rays(cam, w, h, u[0], u[1])
+    check(tuple(cam.res) == LARGE_RES, f"sphere camera at {cam.res}")
+    cam_o, cam_d = camera_rays(cam, n, gen)
     rnd_o = torch.from_numpy(gen.uniform(1, 499, (n, 3)).astype(np.float32))
     rnd_d = gen.normal(size=(n, 3)).astype(np.float32)
     rnd_d /= np.linalg.norm(rnd_d, axis=-1, keepdims=True)
-    rays = {"camera": (cam_o.contiguous(), cam_d.contiguous()),
+    rays = {"camera": (cam_o, cam_d),
             "random": (rnd_o.to(dev), torch.from_numpy(rnd_d).to(dev))}
     max_err = 0.0
     out = {}
@@ -702,25 +731,28 @@ def golden_compare(pt, png, golden):
             float((ref ** 2.2).mean()))
 
 
-def hold_main_path_bands(pt, cam, scene, spp):
+def hold_main_path_bands(pt, cam, scene, spp, depth=DEPTH, seed=None):
     """The beam kernel at the main path's launch shape (its padded film, its
     accel and its samples per launch) held against the plain version on two
     bands of BAND_TILES tiles: the film's first tiles and the tiles at its
-    centre, the first launch's sample window.  Returns (record, largest
-    per-sample difference)."""
+    centre, the first launch's sample window (``seed``: the render's, None
+    for the package's).  Returns (record, largest per-sample
+    difference)."""
     import torch
     from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
 
-    spp_call = bk._default_spp_per_call(cam, spp, DEPTH)
+    spp_call = bk._default_spp_per_call(cam, spp, depth)
     wp, hp = bk._padded_res(*cam.res)
     centre_sq = (hp // 2 // 64) * (wp // 64) + wp // 2 // 64
     out, worst, lit = {}, 0.0, 0.0
     for tile0 in (0, centre_sq * (64 * 64 // bk.TILE_PX)):
         kw = dict(tile0=tile0, n_tiles=BAND_TILES)
-        got = bk.render_tiles_beam(cam, scene, 0, spp_call, DEPTH, **kw)
-        want = bk.render_tiles_beam_reference(cam, scene, 0, spp_call, DEPTH,
+        if seed is not None:
+            kw["seed"] = seed
+        got = bk.render_tiles_beam(cam, scene, 0, spp_call, depth, **kw)
+        want = bk.render_tiles_beam_reference(cam, scene, 0, spp_call, depth,
                                               **kw)
-        torch.cuda.synchronize()
+        sync(got)
         diff, share = film_diff(got.T / spp_call, want.T / spp_call)
         equal = float((got == want).float().mean())
         lit = max(lit, float(got.mean()))
@@ -1003,7 +1035,6 @@ def phase_timing(pt, dev, card, record, parent=None):
     beside the new ones."""
     import numpy as np
     import torch
-    from pathtracer_tpu_torch.camera import get_rays
     from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
     from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
     from pathtracer_tpu_torch.utils.timer import device_ms
@@ -1042,11 +1073,8 @@ def phase_timing(pt, dev, card, record, parent=None):
     n = TIME_CLUSTER_RAYS
     cluster_err = 0.0
     for name, (c, s) in scenes.items():
-        w = torch.from_numpy(gen.integers(0, LARGE_RES[0], n)).to(dev)
-        h = torch.from_numpy(gen.integers(0, LARGE_RES[1], n)).to(dev)
-        u = torch.from_numpy(gen.random((2, n), np.float32)).to(dev)
-        o, d = get_rays(c, w, h, u[0], u[1])
-        o, d = o.contiguous(), d.contiguous()
+        check(tuple(c.res) == LARGE_RES, f"{name} camera at {c.res}")
+        o, d = camera_rays(c, n, gen)
         cs = pt.build_clusters(s).to(dev)
         err, held = hold_clusters(f"{name} ({cs.num_clusters} clusters, "
                                   f"tree depth {cs.tree_depth}) camera", o,
@@ -1379,8 +1407,8 @@ def phase_diff(pt, dev, card, record):
 
 
 def phase_build(record, parent_csrc=None):
-    """Phase 2; returns {trace instance: (registers, stack, spill)}, the
-    SASS figures of the trace kernel's triangle loops and, with
+    """Phase 2; returns {trace instance: (registers, stack, local stores)},
+    the SASS figures of the trace kernel's triangle loops and, with
     ``parent_csrc``, the older kernels' library (built at the same time)."""
     from concurrent.futures import ThreadPoolExecutor
     from pathtracer_tpu_torch.utils import build
@@ -1396,17 +1424,21 @@ def phase_build(record, parent_csrc=None):
     build.load_library()
     print(f"built {os.path.relpath(built.path, REPO)} in "
           f"{built.seconds:.2f} s", flush=True)
-    table = ptxas_table(built.log)
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+
+    def dump(flag, path):
+        return subprocess.run([cuobjdump, flag, str(path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+
+    text = dump("-sass", built.path)
+    table = resource_table(dump("--dump-resource-usage", built.path), text)
     labels = {instance_label(k): v for k, v in table.items()}
     check(all(k in labels for k in LARGE_INSTANCES) and len(table) >= 10,
-          f"ptxas reported the instances {sorted(labels)}")
-    for label, (regs, stack, spill) in sorted(labels.items()):
+          f"cuobjdump reported the instances {sorted(labels)}")
+    for label, (regs, stack, stl) in sorted(labels.items()):
         print(f"  {label}: {regs} registers, {stack} bytes stack frame, "
-              f"{spill} bytes spill stores", flush=True)
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    text = subprocess.run(
-        [cuobjdump, "-sass", str(built.path)], capture_output=True,
-        text=True, check=True, timeout=120).stdout
+              f"{stl} local-memory stores", flush=True)
     sass = sass_triangle_loops(text)
     check(len(sass) == 4, f"SASS of {len(sass)} trace kernel instances")
     for inst, fig in sorted(sass.items()):
@@ -1422,17 +1454,18 @@ def phase_build(record, parent_csrc=None):
               f"{fig['node_loop_instructions']} instructions (two box "
               f"tests); the function: {fig['function_instructions']} "
               f"instructions, {fig['local_memory']} local-memory", flush=True)
-    record["build"] = {"seconds": built.seconds, "ptxas": labels,
+    record["build"] = {"seconds": built.seconds, "resources": labels,
                        "sass": sass, "walk_sass": walks}
     parent = None
     if parent_csrc:
-        older = {instance_label(k): v
-                 for k, v in ptxas_table(builds[1].log).items()}
+        older = {instance_label(k): v for k, v in resource_table(
+            dump("--dump-resource-usage", builds[1].path),
+            dump("-sass", builds[1].path)).items()}
         print(f"older kernels ({parent_csrc}) built in "
               f"{builds[1].seconds:.2f} s: " + "; ".join(
-                  f"{k}: {r} registers, {st} bytes stack, {sp} bytes spill"
+                  f"{k}: {r} registers, {st} bytes stack, {sp} local stores"
                   for k, (r, st, sp) in sorted(older.items())), flush=True)
-        record["build"]["older_ptxas"] = older
+        record["build"]["older_resources"] = older
         parent = parent_library(parent_csrc)
     regs = {trace_instance(k): v for k, v in table.items()
             if trace_instance(k)}
@@ -1612,21 +1645,21 @@ def phase_trace_timing(pt, card, regs, sass, record):
             inst = f"{loop}/{'specular' if scene.has_specular else 'diffuse'}"
             per_test = sass[inst]["instructions_per_test"]
             issue_ms = live * scene.num_tris * per_test / rate * 1e3
-            r, stack, spill = regs[inst]
+            r, stack, stl = regs[inst]
             print(f"{card}: {name} {loop}: kernel {ms:.4f} ms (runs "
                   f"{runs}), plain version {plain_ms:.3f} ms (runs "
                   f"{plain_all}), bit-identical; {bound / ms:.2%} of the "
                   f"bound; the triangle loop's issue slots alone "
                   f"{issue_ms:.4f} ms ({per_test:.2f} instructions per "
-                  f"test); {r} registers, {stack} bytes stack, {spill} "
-                  f"bytes spill", flush=True)
+                  f"test); {r} registers, {stack} bytes stack, {stl} "
+                  f"local stores", flush=True)
             out[name][loop] = {"ms": ms, "runs": runs, "plain_ms": plain_ms,
                                "plain_runs": plain_all, "max_abs": max_abs,
                                "share_of_bound": bound / ms,
                                "issue_ms": issue_ms,
                                "instructions_per_test": per_test,
                                "registers": r, "stack": stack,
-                               "spill": spill}
+                               "local_stores": stl}
             if name == "cornell1024" and loop == ttk.DEFAULT_LOOP:
                 main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "max_abs": max_abs}
@@ -1880,24 +1913,38 @@ def phase_sharded(pt, dev, card, record):
     record["sharded"] = out
 
 
-def brightest_sees_light(pt, cam, scene, img_u8):
+def brightest_sees_light(pt, cam, scene, img_u8, ties=False):
     """(w, h) of the first brightest pixel of a PNG read back (rows top
-    first); raises unless its centre ray hits an EMIT triangle."""
+    first); raises unless its centre ray hits an EMIT triangle.  With
+    ``ties``, every pixel at the brightest value is a candidate and one
+    of them must see the light: in a box of glossy walls the light's
+    reflections saturate as the light does."""
     import numpy as np
     import torch
     from pathtracer_tpu_torch.camera import get_rays
     from pathtracer_tpu_torch.ops.intersect import intersect_brute
 
     lum = img_u8.astype(np.float32).mean(axis=-1)[::-1]    # film rows
-    bh, bw = divmod(int(np.argmax(lum)), lum.shape[1])
+    if ties:
+        hs, ws = np.nonzero(lum == lum.max())
+    else:
+        hs, ws = np.divmod([int(np.argmax(lum))], lum.shape[1])
     dev = scene.device
-    half = torch.full((1,), 0.5, device=dev)
-    o, d = get_rays(cam, torch.tensor([bw], device=dev),
-                    torch.tensor([bh], device=dev), half, half)
-    _, tid = intersect_brute(o, d, scene.v1, scene.v2, scene.v3)
-    tid = int(tid[0])
-    check(tid >= 0 and int(scene.mat_type[tid]) == pt.EMIT,
-          f"brightest pixel ({bw}, {bh}) sees triangle {tid}, not the light")
+    tids = []
+    for k in range(0, len(hs), 1 << 16):
+        w = torch.from_numpy(ws[k:k + (1 << 16)]).to(dev)
+        h = torch.from_numpy(hs[k:k + (1 << 16)]).to(dev)
+        half = torch.full(w.shape, 0.5, device=dev)
+        o, d = get_rays(cam, w, h, half, half)
+        tids.append(intersect_brute(o, d, scene.v1, scene.v2, scene.v3)[1])
+    tid = torch.cat(tids).long()
+    sees = (tid >= 0) & (scene.mat_type[tid.clamp_min(0)] == pt.EMIT)
+    first = int(sees.int().argmax()) if bool(sees.any()) else 0
+    bw, bh = int(ws[first]), int(hs[first])
+    check(bool(sees[first]),
+          f"brightest pixel ({bw}, {bh}) sees triangle {int(tid[0])}, not "
+          f"the light" + (f" (nor does any of the {len(hs)} as bright)"
+                          if ties else ""))
     return bw, bh, float(lum[bh, bw])
 
 
@@ -2231,6 +2278,68 @@ def phase_wavefront(pt, dev, card, record):
     record["wavefront"] = out
 
 
+def bench_verdict(cells):
+    """(cells with a failed check that is held: [(cell, sorted failed
+    checks)], beam cells whose golden bar on their own film is reported,
+    not held) of bench_torch.py's cell lines.  Every check is held but
+    that one, and only while the cell's converged golden check holds:
+    the beam's tiles share their bounces, so at the cell's samples its
+    film's mean moves by more than the 2% bar from seed to seed."""
+    failed, reported = [], []
+    for c in cells:
+        bad = {k for k, ok in c["checks"].items() if not ok}
+        if (c["backend"] == "beam" and bad == {"golden"}
+                and c["checks"].get("golden_converged")):
+            reported.append(c["cell"])
+        elif bad:
+            failed.append((c["cell"], sorted(bad)))
+    return failed, reported
+
+
+def phase_bench(pt, dev, card, record):
+    """Phase 14: bench_torch.py over every cell, one timed run each, in a
+    process of its own; its --out lines are parsed and every check of
+    every cell must hold but a beam cell's golden bar on its own film,
+    which is reported (bench_verdict); bench_torch.py leaves that cell
+    failing and exits 1 for it."""
+    path = os.path.join(OUT_DIR, "bench_torch.json")
+    if os.path.exists(path):
+        os.unlink(path)
+    print("== 14 bench_torch.py, every cell, one timed run each",
+          flush=True)
+    rc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench_torch.py"), "--repeats",
+         "1", "--refconfig-repeats", "1", "--out", path],
+        stdout=subprocess.DEVNULL, timeout=900).returncode
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    cells = lines[:-1]
+    for c in cells:
+        print(f"{card}: {c['cell']}: {c['metric']} {c['value']:.4e} "
+              f"rays/s, {c['timing']['seconds'][0]:.3f} s, kernel "
+              f"{c['kernel_ms']} ms a launch, launches a run "
+              f"{c['launches'][c['kernel']]:g}; correct {c['correct']} "
+              f"{c['checks']}", flush=True)
+        for g in ("golden", "golden_converged"):
+            if c.get(g):
+                print(f"  {g}: {c[g].get('spp', c['spp'])} spp, linear "
+                      f"mean {c[g]['linear_mean']:.6f} vs the committed "
+                      f"{c[g]['golden_mean']:.6f} ({c[g]['rel_err']:+.2%}, "
+                      f"bar {GOLDEN_MEAN_RTOL:.0%})", flush=True)
+    failed, reported = bench_verdict(cells)
+    for name in reported:
+        print(f"  {name}: the golden bar on the cell's own film fails and "
+              f"is reported; its converged render holds it", flush=True)
+    check(len(cells) == 8 and len({c["cell"] for c in cells}) == 8,
+          f"bench cells {[c['cell'] for c in cells]}: not bench.py's eight")
+    check(not failed, f"benchmark checks failed: {failed}; notes: "
+          + "; ".join(f"{c['cell']} {c.get('notes')}" for c in cells
+                      if not c["correct"]))
+    check(rc == (1 if reported else 0), f"bench_torch.py exited {rc}")
+    record["bench"] = lines[-1]
+    record["bench_golden_reported"] = reported
+
+
 def main():
     import argparse
     import torch
@@ -2240,7 +2349,7 @@ def main():
                     help="an older checkout's csrc/: time its beam and "
                          "cluster kernels beside these in phase 9")
     ap.add_argument("--phases", metavar="N,N",
-                    help="run only these of phases 11-13 (after 1 and 2) "
+                    help="run only these of phases 11-14 (after 1 and 2) "
                          "and print neither the kernels line nor the "
                          "device line")
     args = ap.parse_args()
@@ -2267,7 +2376,7 @@ def main():
     if args.phases:
         only = {int(x) for x in args.phases.split(",")}
         extra = {11: phase_sharded, 12: phase_realtime_cli,
-                 13: phase_wavefront}
+                 13: phase_wavefront, 14: phase_bench}
         check(only <= set(extra), f"--phases takes {sorted(extra)}")
         for n in sorted(only):
             extra[n](pt, dev, card, record)
@@ -2286,6 +2395,7 @@ def main():
     phase_sharded(pt, dev, card, record)
     phase_realtime_cli(pt, dev, card, record)
     phase_wavefront(pt, dev, card, record)
+    phase_bench(pt, dev, card, record)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 
