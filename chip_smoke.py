@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of pathtracer_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent-csrc DIR] [--phases 11,14]
+    python3 chip_smoke.py [--parent-csrc DIR] [--phases 11,15]
 
 Phases, each printed as it runs; any failure raises and the exit code is
 not 0:
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit;
-  2. build: compiles csrc/*.cu with nvcc for sm_90a (with --parent-csrc,
-     an older checkout's beam_kernel.cu and cluster_kernel.cu at the same
-     time), prints the time and, read from the built library with
-     cuobjdump, the registers, stack and local-memory stores of every
-     kernel instance, and, from cuobjdump's SASS, the instructions of each
-     trace-kernel instance's triangle loop per test and of each beam and
-     cluster instance's tree-walk loop per node;
+  2. build: compiles csrc/*.cu with nvcc for sm_90a, and at the same time
+     the bounds-checked library from the same sources (-DPTK_CHECKED, for
+     phase 15) and, with --parent-csrc, an older checkout's beam_kernel.cu
+     and cluster_kernel.cu; prints the times and, read from the built
+     library with cuobjdump, the registers, stack and local-memory stores
+     of every kernel instance, and, from cuobjdump's SASS, the
+     instructions of each trace-kernel instance's triangle loop per test
+     and of each beam and cluster instance's tree-walk loop per node;
   3. the megakernel against its plain PyTorch version on the card, both
      loops ("mt" and "plucker"): bit-identical (max abs 0) on the corner,
      Cornell and specular scenes at 64^2, 4 spp, depth 5; per loop a band
@@ -122,12 +123,23 @@ not 0:
      check of every cell must hold, but a beam cell's golden bar on its
      own film, which is reported while its converged render holds the
      bar (bench_verdict);
+ 15. the randomized sweep (tests/test_fuzz.py's scenes, fuzz_scene, at
+     launch shapes the main paths never send: fuzz_trace_cases,
+     fuzz_cluster_cases, fuzz_beam_cases): every launch of each kernel bit
+     for bit against its plain version, every buffer of its wrapper and
+     every accel input between NaN guard margins that must come back
+     untouched, a second launch bit for bit against the first; in a child
+     process with CUDA_LAUNCH_BLOCKING=1, first on the checked library
+     (an index out of range traps, naming the kernel, the array and the
+     index; with it, FUZZ_REPLAYS rounds of phase 3's corner-scene
+     sequence) and then on the normal one; then the replay again here, on
+     the normal library, launches asynchronous as in phase 3;
 then one JSON line on the kernels (each with its launches on its main
 path, its error against its plain version, its time, the plain version's,
 its bound: the operations these inputs need over the card's published
 fp32 rate) and, last, the device line.  The renders and a JSON record of
 the run go to build/chip_smoke/ (git-ignored).  With --phases, only
-phases 1, 2 and the listed ones of 11 to 14 run, and neither JSON line
+phases 1, 2 and the listed ones of 11 to 15 run, and neither JSON line
 is printed.
 """
 
@@ -449,6 +461,53 @@ def inline_scene(pt, specular=False):
 def with_res(cam, res):
     import dataclasses
     return dataclasses.replace(cam, res=tuple(res))
+
+
+def fuzz_scene(pkg, seed, n_tris, res=(32, 32), specular=True, **device):
+    """tests/test_fuzz.py's random scene with exactly ``n_tris`` triangles:
+    an emitter quad (two triangles), n_tris - 3 random ones (centres in
+    [-8, 8]^3, scales from 10^-2 to 10^0.8, so slivers and overlaps; Emit,
+    Diffuse or Specular), then an axis-aligned triangle (axis-parallel
+    rays meet d == 0 slab planes); below 3 the first n_tris of the quad and
+    that triangle.  The camera, at a random point, looks at the centroid of
+    the triangles' first vertices.  Without ``specular`` the specular
+    draws make diffuse triangles of the same colour, on the same geometry.
+    ``pkg`` is pathtracer_tpu_torch, with
+    ``device=`` for its builders, or any package with the same
+    SceneBuilder, materials and make_camera (the JAX one, in the tests).
+    Returns (camera, scene)."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    light = pkg.Emit(1.0, 0.9, 0.8)
+    a, b, c, d = (4, 9.5, 2), (4, 9.5, 6), (-4, 9.5, 6), (-4, 9.5, 2)
+    tris = [(a, b, c, light), (d, c, a, light)]
+    for _ in range(max(n_tris - 3, 0)):
+        centre = r.uniform(-8, 8, 3)
+        scale = 10.0 ** r.uniform(-2, 0.8)
+        v = centre + r.normal(size=(3, 3)) * scale
+        kind = r.integers(0, 4)
+        if kind == 0:
+            m = pkg.Emit(*r.uniform(0.2, 1.5, 3))
+        elif kind == 3:
+            rough, color = float(r.uniform(0, 0.6)), r.uniform(0.1, 0.9, 3)
+            m = (pkg.Specular(rough, *color) if specular
+                 else pkg.Diffuse(*color))
+        else:
+            m = pkg.Diffuse(*r.uniform(0.05, 0.95, 3))
+        tris.append((*(tuple(x) for x in v), m))
+    tris.append(((0, -2, 0), (3, -2, 0), (0, -2, 3),
+                 pkg.Diffuse(0.5, 0.5, 0.5)))
+    tris = tris[:n_tris]
+    sb = pkg.SceneBuilder()
+    for tri in tris:
+        sb.add_triangle(*tri)
+    scene = sb.build(**device)
+    pos = r.uniform(-14, 14, 3)
+    centroid = np.asarray([t[0] for t in tris], np.float32).mean(axis=0)
+    cam = pkg.make_camera(tuple(pos), tuple(centroid - pos), (0, 1, 0),
+                          tuple(res), 70 * pkg.DEG2RAD, 1.0, **device)
+    return cam, scene
 
 
 def tie_scene(pt, dev, res=(64, 64)):
@@ -1414,16 +1473,19 @@ def phase_build(record, parent_csrc=None):
     from pathtracer_tpu_torch.utils import build
 
     print("== 2 build", flush=True)
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(build.build_library)]
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(build.build_library),
+                pool.submit(build.build_library, checked=True)]
         if parent_csrc:
             jobs.append(pool.submit(build.build_library, parent_csrc,
                                     "libparent_large", PARENT_SOURCES))
         builds = [job.result() for job in jobs]
-    built = builds[0]
+    built, checked = builds[0], builds.pop(1)
     build.load_library()
     print(f"built {os.path.relpath(built.path, REPO)} in "
-          f"{built.seconds:.2f} s", flush=True)
+          f"{built.seconds:.2f} s, and the checked library (phase 15) "
+          f"{os.path.relpath(checked.path, REPO)} in {checked.seconds:.2f} s "
+          f"beside it", flush=True)
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
 
     def dump(flag, path):
@@ -1455,7 +1517,8 @@ def phase_build(record, parent_csrc=None):
               f"tests); the function: {fig['function_instructions']} "
               f"instructions, {fig['local_memory']} local-memory", flush=True)
     record["build"] = {"seconds": built.seconds, "resources": labels,
-                       "sass": sass, "walk_sass": walks}
+                       "sass": sass, "walk_sass": walks,
+                       "checked_seconds": checked.seconds}
     parent = None
     if parent_csrc:
         older = {instance_label(k): v for k, v in resource_table(
@@ -2340,6 +2403,471 @@ def phase_bench(pt, dev, card, record):
     record["bench_golden_reported"] = reported
 
 
+# The randomized sweep (phase 15): fuzz_scene's random scenes at launch
+# shapes the main paths never send (films that are no power of two, short
+# last warps, sample counts off the 16-sample pool, row counts at and around
+# the row multiple and the 512-row ceiling, bands one row high at h0 > 0,
+# windows at s0 > 0, a one-cluster set, cluster tables too large for shared
+# memory, films off the 64-pixel squares, the last tile alone), each kernel
+# against its plain version.  It runs in a child process with
+# CUDA_LAUNCH_BLOCKING=1, first on the bounds-checked library, then on the
+# normal one; then phase 3's sequence is replayed in this process.
+FUZZ_TRACE_TRIS = (1, 3, 4, 5, 8, 63, 64, 65, 200, 511, 512)
+FUZZ_TRACE_DRAWS = 3       # cases per (triangles, loop, specular)
+FUZZ_FILMS = ((33, 17), (31, 29), (7, 5), (1, 1), (97, 3), (40, 24))
+FUZZ_SPP = (1, 15, 17, 33)
+FUZZ_DEPTHS = (0, 1, 5)
+# (triangles, max_tris): one cluster; the shared-memory tables; tables too
+# large for them (the kernel's global-memory instance).
+FUZZ_CLUSTER_SETS = ((1, 64), (24, 64), (160, 4), (600, 16), (6000, 4))
+FUZZ_RAYS = (1, 255, 256, 257, 1000, 4097)
+FUZZ_RAY_KINDS = ("camera", "inside", "axis")
+# (triangles, specular): a single supercluster; all four instances of the
+# beam kernel (more than 64 materials are inlined in the rows).
+FUZZ_BEAM_SCENES = ((2, False), (24, False), (24, True), (160, False),
+                    (160, True), (600, True))
+FUZZ_BEAM_FILMS = ((33, 17), (100, 70), (65, 64), (130, 3))
+FUZZ_BEAM_DRAWS = 4
+FUZZ_REPLAYS = 256         # rounds of phase 3's corner-scene sequence
+FUZZ_TIMEOUT = 600         # seconds for a child, start-up included
+
+
+class GuardedTorch:
+    """The torch module, except that ``zeros``, ``empty`` and ``cat``
+    return views into the middle of larger buffers whose margins hold NaN
+    bits (0x7FC00000, read as float32 or int32): a kernel that writes past
+    either end of one changes a margin.  ``copy`` puts an input between such
+    margins.  Only 4-byte types, those of every kernel buffer, are taken."""
+
+    MARGIN = 1 << 16   # elements on each side
+    NAN_BITS = 0x7FC00000
+
+    def __init__(self):
+        import torch
+        self._torch = torch
+        self.buffers = []
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def _guarded(self, shape, dtype, device):
+        import math
+        torch = self._torch
+        if dtype.itemsize != 4:
+            raise TypeError(f"GuardedTorch guards 4-byte types, not {dtype}")
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        n = math.prod(shape)
+        buf = torch.full((n + 2 * self.MARGIN,), self.NAN_BITS,
+                         dtype=torch.int32, device=device)
+        self.buffers.append(buf)
+        return buf[self.MARGIN:self.MARGIN + n].view(dtype).view(shape)
+
+    def zeros(self, shape, *, dtype=None, device=None):
+        dtype = dtype or self._torch.float32
+        return self._guarded(shape, dtype, device).zero_()
+
+    def empty(self, shape, *, dtype=None, device=None):
+        return self._guarded(shape, dtype or self._torch.float32, device)
+
+    def cat(self, tensors, dim=0):
+        return self.copy(self._torch.cat(tensors, dim))
+
+    def copy(self, x):
+        return self._guarded(x.shape, x.dtype, x.device).copy_(x)
+
+    def hits(self):
+        """The buffers whose margins changed."""
+        m = self.MARGIN
+        return sum(1 for b in self.buffers
+                   if not (bool((b[:m] == self.NAN_BITS).all())
+                           and bool((b[-m:] == self.NAN_BITS).all())))
+
+
+@contextlib.contextmanager
+def guarded_wrappers(guard):
+    """The kernel wrappers' ``torch`` replaced by ``guard`` (the trace
+    kernel's module too: the beam wrapper packs its camera there)."""
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+    with contextlib.ExitStack() as stack:
+        for module in (ttk, ck, bk):
+            stack.enter_context(swapped(module, "torch", guard))
+        yield
+
+
+def guarded_fields(guard, obj):
+    """A copy of the dataclass ``obj`` (a ClusterSet or BeamAccel) whose
+    tensor fields lie between the guard's margins."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(obj, **{
+        f.name: guard.copy(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def fuzz_trace_cases():
+    """The trace kernel's cases: every count of FUZZ_TRACE_TRIS in both
+    loops, with and without specular materials, FUZZ_TRACE_DRAWS times,
+    each with a drawn film, band (the whole film, one row at h0 > 0, or
+    any band), window and depth; then phase 3's shapes."""
+    import numpy as np
+    r = np.random.default_rng(15)
+    cases = []
+    for n in FUZZ_TRACE_TRIS:
+        for loop in ("mt", "plucker"):
+            for specular in (False, True):
+                for _ in range(FUZZ_TRACE_DRAWS):
+                    w, h = FUZZ_FILMS[r.integers(len(FUZZ_FILMS))]
+                    band = r.integers(3)
+                    if band == 0 or h == 1:
+                        h0, band_h = 0, h
+                    elif band == 1:
+                        h0, band_h = int(r.integers(1, h)), 1
+                    else:
+                        h0 = int(r.integers(0, h))
+                        band_h = int(r.integers(1, h - h0 + 1))
+                    cases.append(dict(
+                        n_tris=n, res=(w, h), loop=loop, specular=specular,
+                        h0=h0, band_h=band_h,
+                        s0=int(r.choice([0, r.integers(1, 1 << 20)])),
+                        spp=int(r.choice(FUZZ_SPP)),
+                        depth=int(r.choice(FUZZ_DEPTHS)),
+                        seed=int(r.integers(1 << 31))))
+    for loop in ("mt", "plucker"):   # phase 3's band and window launches
+        cases.append(dict(n_tris=24, res=(64, 48), loop=loop, specular=True,
+                          h0=17, band_h=13, s0=1, spp=3, depth=DEPTH,
+                          seed=1))
+    return cases
+
+
+def fuzz_cluster_cases():
+    """The cluster kernel's cases: each set of FUZZ_CLUSTER_SETS with each
+    kind of rays (camera rays; origins anywhere in the scene's box, some
+    direction components exactly 0; origins at cluster centres, directions
+    along an axis) at two drawn ray counts, unsorted and sorted."""
+    import numpy as np
+    r = np.random.default_rng(16)
+    cases = []
+    for n, max_tris in FUZZ_CLUSTER_SETS:
+        for kind in FUZZ_RAY_KINDS:
+            for _ in range(2):
+                rays = int(r.choice(FUZZ_RAYS))
+                for sort_rays in (False, True):
+                    cases.append(dict(n_tris=n, max_tris=max_tris,
+                                      kind=kind, rays=rays,
+                                      sort_rays=sort_rays,
+                                      seed=int(r.integers(1 << 31))))
+    return cases
+
+
+def fuzz_beam_cases():
+    """The beam kernel's cases: each scene of FUZZ_BEAM_SCENES on drawn
+    films (none a multiple of 64), tile bands (the whole film, the last
+    tile alone, or any band), windows and depths 1 and 3."""
+    import numpy as np
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    r = np.random.default_rng(17)
+    cases = []
+    for n, specular in FUZZ_BEAM_SCENES:
+        for k in range(FUZZ_BEAM_DRAWS):
+            w, h = FUZZ_BEAM_FILMS[r.integers(len(FUZZ_BEAM_FILMS))]
+            wp, hp = bk._padded_res(w, h)
+            total = wp * hp // bk.TILE_PX
+            band = k % 3
+            if band == 0:
+                tile0, n_tiles = 0, total
+            elif band == 1:
+                tile0, n_tiles = total - 1, 1
+            else:
+                tile0 = int(r.integers(0, total))
+                n_tiles = int(r.integers(1, total - tile0 + 1))
+            cases.append(dict(n_tris=n, specular=specular, res=(w, h),
+                              tile0=tile0, n_tiles=n_tiles,
+                              s0=int(r.integers(0, 1000)),
+                              spp=int(r.integers(1, 5)),
+                              depth=(1, 3)[k % 2], counts=k % 2 == 0,
+                              seed=int(r.integers(1 << 31))))
+    return cases
+
+
+def fuzz_rays(case, cam, cs, dev):
+    """(origins, directions) (R, 3) float32 of a cluster case."""
+    import numpy as np
+    import torch
+    gen = np.random.default_rng(case["seed"])
+    n = case["rays"]
+    if case["kind"] == "camera":
+        return camera_rays(cam, n, gen)
+    if case["kind"] == "inside":
+        lb, rt = (x.cpu().numpy() for x in cs.scene_bounds)
+        o = lb + gen.random((n, 3)) * (rt - lb)
+        d = gen.normal(size=(n, 3))
+        zero = gen.random((n, 3)) < 0.3
+        zero[np.all(zero, axis=1), 0] = False
+        d[zero] = 0.0
+    else:
+        centres = cs.centers.cpu().numpy()
+        o = centres[gen.integers(0, centres.shape[0], n)]
+        d = np.zeros((n, 3))
+        d[np.arange(n), gen.integers(0, 3, n)] = gen.choice([-1.0, 1.0], n)
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def cluster_instance(cs):
+    """"smem" or "global": the cluster kernel's instance for this set, by
+    the rule of csrc/cluster_kernel.cu (its tables and stack in shared
+    memory when two blocks of them fit an SM)."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    per_sm = 228 * 1024       # the H100's, where torch does not report it
+    if cs.device.type == "cuda":
+        per_sm = getattr(torch.cuda.get_device_properties(cs.device),
+                         "shared_memory_per_multiprocessor", per_sm)
+    stack = cs.tree_depth * ck.BLOCK_RAYS * 8
+    tables = (cs.num_clusters - 1) * 64 + cs.num_clusters * 8
+    return "smem" if 2 * (stack + tables + 1024) <= per_sm else "global"
+
+
+def same_bits(a, b):
+    """Whether two tensors, or two tuples of tensors, are equal bit for
+    bit."""
+    import torch
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_fuzz_case(pt, dev, kind, case):
+    """One case: the kernel launched twice on guarded buffers, then the
+    plain version.  Returns {"launches", "equal" (to the plain version, bit
+    for bit), "repeat" (the second launch's bits equal the first's),
+    "guard_hits" (buffers whose margins changed), "instance"}."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+    from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    guard = GuardedTorch()
+    counts = []   # the beam's per-pixel test counts of each launch
+    if kind == "trace":
+        cam, scene = fuzz_scene(pt, 1000 + case["n_tris"], case["n_tris"],
+                                case["res"], specular=case["specular"],
+                                device=dev)
+        args = (cam, scene, case["s0"], case["spp"], case["depth"])
+        kw = dict(seed=case["seed"], h0=case["h0"], band_h=case["band_h"],
+                  loop=case["loop"])
+        module = ttk
+        instance = (f"{case['loop']}/"
+                    f"{'specular' if scene.has_specular else 'diffuse'}")
+
+        def run():
+            return ttk.render_sum_cuda(*args, **kw)
+
+        def plain():
+            return ttk.render_sum_reference(*args, **kw)
+    elif kind == "cluster":
+        cam, scene = fuzz_scene(pt, 2000 + case["n_tris"], case["n_tris"],
+                                (64, 64), device=dev)
+        cs = pt.build_clusters(scene, max_tris=case["max_tris"]).to(dev)
+        o, d = fuzz_rays(case, cam, cs, dev)
+        g_cs = guarded_fields(guard, cs)
+        g_o, g_d = guard.copy(o), guard.copy(d)
+        module = ck
+        instance = cluster_instance(cs)
+
+        def run():
+            return ck.intersect_clusters(g_o, g_d, g_cs,
+                                         sort_rays=case["sort_rays"])
+
+        def plain():
+            return ck.intersect_clusters_reference(o, d, cs)
+    else:
+        cam, scene = fuzz_scene(pt, 3000 + case["n_tris"], case["n_tris"],
+                                case["res"], specular=case["specular"],
+                                device=dev)
+        accel = bk._accel_for(scene)
+        g_accel = guarded_fields(guard, accel)
+        args = (cam, scene, case["s0"], case["spp"], case["depth"])
+        kw = dict(seed=case["seed"], tile0=case["tile0"],
+                  n_tiles=case["n_tiles"])
+        module = bk
+        instance = (f"{'specular' if scene.has_specular else 'diffuse'}/"
+                    f"{'inline' if accel.mats_inline else 'table'}")
+
+        def run():
+            c = None
+            if case["counts"] and dev.type == "cuda":
+                c = guard.zeros(case["n_tiles"] * bk.TILE_PX,
+                                dtype=torch.int32, device=dev)
+                counts.append(c)
+            return bk.render_tiles_beam(*args, accel=g_accel, counts=c, **kw)
+
+        def plain():
+            return bk.render_tiles_beam_reference(*args, accel=accel, **kw)
+
+    before = module.LAUNCHES
+    with guarded_wrappers(guard):
+        first = run()
+        second = run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = module.LAUNCHES - before
+    want = plain()
+    repeat = same_bits(first, second) and (
+        len(counts) < 2 or torch.equal(counts[0], counts[1]))
+    return {"launches": launches, "equal": same_bits(first, want),
+            "repeat": repeat, "guard_hits": guard.hits(),
+            "buffers": len(guard.buffers), "instance": instance}
+
+
+def fuzz_sweep(pt, dev, label):
+    """Every case of the three kernels; prints one line per kernel and
+    returns {kernel: summary}."""
+    cases = {"trace": fuzz_trace_cases(), "cluster": fuzz_cluster_cases(),
+             "beam": fuzz_beam_cases()}
+    out = {}
+    for kind, todo in cases.items():
+        t0 = time.perf_counter()
+        s = {"cases": len(todo), "launches": 0, "mismatches": [],
+             "repeat_mismatches": [], "guard_hits": 0, "instances": {}}
+        for case in todo:
+            got = run_fuzz_case(pt, dev, kind, case)
+            s["launches"] += got["launches"]
+            s["guard_hits"] += got["guard_hits"]
+            s["instances"][got["instance"]] = (
+                s["instances"].get(got["instance"], 0) + 1)
+            if not got["equal"]:
+                s["mismatches"].append(case)
+            if not got["repeat"]:
+                s["repeat_mismatches"].append(case)
+        s["seconds"] = time.perf_counter() - t0
+        print(f"fuzz {label} {kind}: {s['cases']} cases, {s['launches']} "
+              f"launches, {len(s['mismatches'])} mismatches against the "
+              f"plain version, {len(s['repeat_mismatches'])} second "
+              f"launches not bit-equal, {s['guard_hits']} guard-margin "
+              f"hits, instances {s['instances']}, {s['seconds']:.1f} s",
+              flush=True)
+        for case in s["mismatches"] + s["repeat_mismatches"]:
+            print(f"  failing {kind} case: {case}", flush=True)
+        out[kind] = s
+    return out
+
+
+def fuzz_replay(pt, dev, label):
+    """Phase 3's sequence on the corner scene, FUZZ_REPLAYS rounds: per
+    loop a trace-kernel launch at 64^2, 4 spp, depth 5, then its plain
+    version.  Prints and returns {"pairs", "mismatches", "seconds"}."""
+    import torch
+    from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+    t0 = time.perf_counter()
+    bad = 0
+    for _ in range(FUZZ_REPLAYS):
+        cam, scene = pt.corner_scene(res=(64, 64), device=dev)
+        for loop in ttk.LOOPS:
+            got = ttk.render_sum_cuda(cam, scene, 0, 4, DEPTH, loop=loop)
+            want = ttk.render_sum_reference(cam, scene, 0, 4, DEPTH,
+                                            loop=loop)
+            bad += not torch.equal(got, want)
+    rec = {"pairs": FUZZ_REPLAYS * len(ttk.LOOPS), "mismatches": bad,
+           "seconds": time.perf_counter() - t0}
+    print(f"fuzz {label} replay of phase 3 (corner 64^2, both loops): "
+          f"{rec['pairs']} kernel launches each followed by the plain "
+          f"version, {bad} mismatches, {rec['seconds']:.1f} s, "
+          f"CUDA_LAUNCH_BLOCKING="
+          f"{os.environ.get('CUDA_LAUNCH_BLOCKING', 'unset')}", flush=True)
+    return rec
+
+
+def fuzz_child(out_path):
+    """The child of phase 15 (``--fuzz-child OUT``): the sweep and the
+    replay on the checked library, then the sweep on the normal one, their
+    records into the JSON at OUT."""
+    import torch
+    sys.path.insert(0, REPO)
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.utils import build
+
+    check(torch.cuda.is_available(), "the fuzz child needs a GPU")
+    dev = torch.device("cuda", 0)
+    out = {"blocking": os.environ.get("CUDA_LAUNCH_BLOCKING") == "1"}
+    checked = functools.partial(build.load_library, checked=True)
+    with swapped(build, "load_library", checked):
+        out["checked"] = {"sweep": fuzz_sweep(pt, dev, "checked"),
+                          "replay": fuzz_replay(pt, dev, "checked")}
+    out["normal"] = {"sweep": fuzz_sweep(pt, dev, "normal")}
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+
+
+def fuzz_verdict(results):
+    """(faults, summary line) of phase 15's records: the child's
+    ({"checked": {"sweep", "replay"}, "normal": {"sweep"}}) and the
+    parent's replay.  A kernel faults on a library when a case differs
+    from the plain version or from its own second launch, when a guard
+    margin changed, when a case launched the kernel fewer than twice, or
+    when the cases missed one of its instances; a replay faults on a
+    mismatch."""
+    instances = {"trace": 4, "cluster": 2, "beam": 4}
+    child = results["child"]
+    runs = [(label, kind, s) for label in ("checked", "normal")
+            for kind, s in child[label]["sweep"].items()]
+    bad = [f"{label} {kind}" for label, kind, s in runs
+           if s["mismatches"] or s["repeat_mismatches"] or s["guard_hits"]
+           or s["launches"] < 2 * s["cases"]
+           or len(s["instances"]) != instances[kind]]
+    replays = (child["checked"]["replay"], results["replay"])
+    bad += [f"{name} replay" for name, r in zip(("checked", "unblocked"),
+                                               replays) if r["mismatches"]]
+    mismatches = sum(len(s["mismatches"]) + len(s["repeat_mismatches"])
+                     for _, _, s in runs)
+    counts = ", ".join(f"{kind} {s['cases']} cases ({s['launches']} "
+                       f"launches)" for kind, s in
+                       child["normal"]["sweep"].items())
+    summary = (f"{counts} on each library; {mismatches} mismatches, "
+               f"{sum(s['guard_hits'] for _, _, s in runs)} guard hits, no "
+               f"trap; phase 3 replayed {replays[0]['pairs']} times checked "
+               f"and {replays[1]['pairs']} unblocked, "
+               f"{sum(r['mismatches'] for r in replays)} mismatches")
+    return bad, summary
+
+
+def phase_fuzz(pt, dev, card, record):
+    """Phase 15: the sweep in a child process with CUDA_LAUNCH_BLOCKING=1
+    (a device fault is pinned to its launch and cannot poison this
+    process), on the checked library and then the normal one; a failure of
+    the child fails the run, with its output.  Then the replay of phase 3
+    here, on the normal library, with launches asynchronous as in phase
+    3."""
+    print("== 15 randomized sweep: each kernel against its plain version "
+          "on random scenes and odd launch shapes", flush=True)
+    t0 = time.perf_counter()
+    path = os.path.join(OUT_DIR, "fuzz.json")
+    if os.path.exists(path):
+        os.unlink(path)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--fuzz-child", path],
+        env=dict(os.environ, CUDA_LAUNCH_BLOCKING="1"), capture_output=True,
+        text=True, timeout=FUZZ_TIMEOUT)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-20000:], end="", flush=True)
+    check(proc.returncode == 0, f"phase 15 child exited {proc.returncode}")
+    with open(path) as f:
+        results = {"child": json.load(f),
+                   "replay": fuzz_replay(pt, dev, "normal")}
+    seconds = time.perf_counter() - t0
+    bad, summary = fuzz_verdict(results)
+    print(f"{card}: phase 15: {summary}; {seconds:.1f} s; the checked "
+          f"library built in {record['build']['checked_seconds']:.2f} s "
+          f"(phase 2); faults: {bad or 'none'}", flush=True)
+    check(not bad, f"phase 15: {bad}")
+    record["fuzz"] = dict(results, seconds=seconds)
+
+
 def main():
     import argparse
     import torch
@@ -2349,10 +2877,14 @@ def main():
                     help="an older checkout's csrc/: time its beam and "
                          "cluster kernels beside these in phase 9")
     ap.add_argument("--phases", metavar="N,N",
-                    help="run only these of phases 11-14 (after 1 and 2) "
+                    help="run only these of phases 11-15 (after 1 and 2) "
                          "and print neither the kernels line nor the "
                          "device line")
+    ap.add_argument("--fuzz-child", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.fuzz_child:
+        fuzz_child(args.fuzz_child)
+        return
 
     print("== 1 device", flush=True)
     check(torch.cuda.is_available(),
@@ -2376,7 +2908,7 @@ def main():
     if args.phases:
         only = {int(x) for x in args.phases.split(",")}
         extra = {11: phase_sharded, 12: phase_realtime_cli,
-                 13: phase_wavefront, 14: phase_bench}
+                 13: phase_wavefront, 14: phase_bench, 15: phase_fuzz}
         check(only <= set(extra), f"--phases takes {sorted(extra)}")
         for n in sorted(only):
             extra[n](pt, dev, card, record)
@@ -2396,6 +2928,7 @@ def main():
     phase_realtime_cli(pt, dev, card, record)
     phase_wavefront(pt, dev, card, record)
     phase_bench(pt, dev, card, record)
+    phase_fuzz(pt, dev, card, record)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
 

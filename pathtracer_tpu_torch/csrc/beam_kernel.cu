@@ -46,6 +46,7 @@
 #include <climits>
 #include <cstdint>
 
+#define PTK_KERNEL "beam_kernel"
 #include "common.cuh"
 
 namespace {
@@ -78,7 +79,8 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
             const float* __restrict__ tri_cols, float* __restrict__ film,
             int* __restrict__ counts, int n_sc, int tree_depth, int ctris,
             int n_pix, int res_y, int nsq_x, int tile0, uint32_t s0, int spp,
-            int depth, uint32_t seed_mix) {
+            int depth, uint32_t seed_mix, int n_mats, int n_cl_rows,
+            int n_tri_rows) {
   // Shared memory: the tree's nodes, each thread's stack slice (entry k of
   // thread x at k * kThreads + x), the superclusters' first clusters and
   // cluster counts.
@@ -90,10 +92,11 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
   int* s_ncl = s_first + n_sc;
   const float4* tree4 = reinterpret_cast<const float4*>(sc_tree);
   for (int i = threadIdx.x; i < 4 * n_nodes; i += blockDim.x)
-    s_node[i] = tree4[i];
+    s_node[PTK_IX(s_node, i, 4 * n_nodes)] =
+        tree4[PTK_IX(sc_tree, i, 4 * n_nodes)];
   for (int i = threadIdx.x; i < n_sc; i += blockDim.x) {
-    s_first[i] = sc_first[i];
-    s_ncl[i] = sc_ncl[i];
+    s_first[PTK_IX(s_first, i, n_sc)] = sc_first[PTK_IX(sc_first, i, n_sc)];
+    s_ncl[PTK_IX(s_ncl, i, n_sc)] = sc_ncl[PTK_IX(sc_ncl, i, n_sc)];
   }
   __syncthreads();
   float2* stack = s_stack + threadIdx.x;
@@ -160,12 +163,14 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
       float best_t = ptk::kInf;
       int best = -1;
       ptk::walk_tree<false>(
-          s_node, n_nodes, stack, kThreads, ox, oy, oz, ix, iy, iz, best_t,
-          [&](int sc) {
-            const int c1 = s_first[sc] + s_ncl[sc];
-            for (int c = s_first[sc]; c < c1; ++c) {
-              const float4 q0 = __ldg(clb4 + 2 * c);
-              const float4 q1 = __ldg(clb4 + 2 * c + 1);
+          s_node, n_nodes, stack, kThreads, tree_depth, ox, oy, oz, ix, iy,
+          iz, best_t, [&](int sc) {
+            const int c0 = s_first[PTK_IX(s_first, sc, n_sc)];
+            const int c1 = c0 + s_ncl[PTK_IX(s_ncl, sc, n_sc)];
+            for (int c = c0; c < c1; ++c) {
+              const float4* q = clb4 + 2 * PTK_IX(cl_bounds, c, n_cl_rows);
+              const float4 q0 = __ldg(q);
+              const float4 q1 = __ldg(q + 1);
               float tmin;
               if (!ptk::slab_enter(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ox,
                                    oy, oz, ix, iy, iz, best_t, tmin))
@@ -173,9 +178,11 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
               tests += ctris;
               const int r0 = c * ctris;
               for (int j = 0; j < ctris; ++j) {
-                const float4 p0 = __ldg(row4 + 4 * (r0 + j));
-                const float4 p1 = __ldg(row4 + 4 * (r0 + j) + 1);
-                const float4 p2 = __ldg(row4 + 4 * (r0 + j) + 2);
+                const float4* p = row4 + 4 * PTK_IX(tri_cols, r0 + j,
+                                                    n_tri_rows);
+                const float4 p0 = __ldg(p);
+                const float4 p1 = __ldg(p + 1);
+                const float4 p2 = __ldg(p + 2);
                 const float t = ptk::mt_hit<true>(
                     p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w, p2.x, ox,
                     oy, oz, dx, dy, dz);
@@ -189,8 +196,9 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
       if (best < 0) break;  // miss: the path dies
 
       // Row [.., mat, Nx, Ny | Nz, color(3)]: cols 9..15.
-      const float4 p2 = __ldg(row4 + 4 * best + 2);
-      const float4 p3 = __ldg(row4 + 4 * best + 3);
+      const float4* hit = row4 + 4 * PTK_IX(tri_cols, best, n_tri_rows);
+      const float4 p2 = __ldg(hit + 2);
+      const float4 p3 = __ldg(hit + 3);
       const float f_mat = p2.y;
       float col_r, col_g, col_b, rough, flags;
       if (kInline) {
@@ -200,7 +208,8 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
         flags = floorf(f_mat * 0.125f);
         rough = f_mat - 8.0f * flags;
       } else {
-        const float* m = mats + 8 * static_cast<int>(f_mat);
+        const float* m =
+            mats + 8 * PTK_IX(mats, static_cast<int>(f_mat), n_mats);
         col_r = __ldg(m);
         col_g = __ldg(m + 1);
         col_b = __ldg(m + 2);
@@ -285,10 +294,16 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
     acc_g = acc_g + rad_g;
     acc_b = acc_b + rad_b;
   }
-  film[local] = film[local] + acc_r;
-  film[n_pix + local] = film[n_pix + local] + acc_g;
-  film[2 * n_pix + local] = film[2 * n_pix + local] + acc_b;
-  if (counts != nullptr) counts[local] = counts[local] + tests;
+  const int fr = PTK_IX(film, local, 3 * n_pix);
+  const int fg = PTK_IX(film, n_pix + local, 3 * n_pix);
+  const int fb = PTK_IX(film, 2 * n_pix + local, 3 * n_pix);
+  film[fr] = film[fr] + acc_r;
+  film[fg] = film[fg] + acc_g;
+  film[fb] = film[fb] + acc_b;
+  if (counts != nullptr) {
+    const int k = PTK_IX(counts, local, n_pix);
+    counts[k] = counts[k] + tests;
+  }
 }
 
 template <bool kHasSpecular, bool kInline>
@@ -298,14 +313,15 @@ cudaError_t launch(int blocks, size_t smem, cudaStream_t st, const float* cam,
                    const float* cl_bounds, const float* tri_cols, float* film,
                    int* counts, int n_sc, int tree_depth, int ctris,
                    int n_pix, int res_y, int nsq_x, int tile0, uint32_t s0,
-                   int spp, int depth, uint32_t seed_mix, int device) {
+                   int spp, int depth, uint32_t seed_mix, int n_mats,
+                   int n_cl_rows, int n_tri_rows, int device) {
   auto kernel = beam_kernel<kHasSpecular, kInline>;
   cudaError_t err = ptk::prepare_smem(kernel, smem, device);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, st>>>(
       cam, sc_tree, sc_first, sc_ncl, mats, cl_bounds, tri_cols, film,
       counts, n_sc, tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp,
-      depth, seed_mix);
+      depth, seed_mix, n_mats, n_cl_rows, n_tri_rows);
   return cudaGetLastError();
 }
 
@@ -321,9 +337,11 @@ extern "C" int pt_tree_stack_size() { return ptk::kTreeStack; }
 // each pixel's tested triangle rows into `counts`.  The accel arrays are
 // those of clusters.BeamAccel: `sc_tree` the (n_sc - 1, 16) tree over the
 // superclusters, `tree_depth` its depth (at most kTreeStack; 0 for one
-// supercluster); `mats_inline` selects the inline material columns.
-// Launches on `stream` of `device` and returns cudaGetLastError() as an
-// int: 0 when the launch was accepted.
+// supercluster); `mats_inline` selects the inline material columns;
+// `n_mats`, `n_cl_rows` and `n_tri_rows` are the rows of `mats` (8 floats
+// each), `cl_bounds` (8) and `tri_cols` (16), which only the checked build
+// reads (PTK_IX).  Launches on `stream` of `device` and returns
+// cudaGetLastError() as an int: 0 when the launch was accepted.
 extern "C" int pt_beam_render(const float* cam, const float* sc_tree,
                               const int* sc_first, const int* sc_ncl,
                               const float* mats, const float* cl_bounds,
@@ -332,8 +350,10 @@ extern "C" int pt_beam_render(const float* cam, const float* sc_tree,
                               int n_tiles, int res_y, int nsq_x, int tile0,
                               uint32_t s0, int spp, int depth,
                               uint32_t seed_mix, int has_specular,
-                              int mats_inline, int device, void* stream) {
+                              int mats_inline, int n_mats, int n_cl_rows,
+                              int n_tri_rows, int device, void* stream) {
   if (n_sc < 1 || tree_depth < 0 || tree_depth > ptk::kTreeStack ||
+      n_mats < 0 || n_cl_rows < 1 || n_tri_rows < 1 ||
       (n_sc == 1) != (tree_depth == 0) || ctris < 1 || n_tiles < 1 ||
       res_y < 1 || nsq_x < 1 || tile0 < 0 || spp < 0 || depth < 0 ||
       (static_cast<long long>(tile0) + n_tiles) << kTileLog2 > INT_MAX) {
@@ -352,7 +372,7 @@ extern "C" int pt_beam_render(const float* cam, const float* sc_tree,
   launch<SPEC, INL>(blocks, smem, st, cam, sc_tree, sc_first, sc_ncl,     \
                     mats, cl_bounds, tri_cols, film, counts, n_sc,        \
                     tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp, \
-                    depth, seed_mix, device)
+                    depth, seed_mix, n_mats, n_cl_rows, n_tri_rows, device)
   if (has_specular) {
     err = mats_inline ? PT_BEAM_LAUNCH(true, true)
                       : PT_BEAM_LAUNCH(true, false);

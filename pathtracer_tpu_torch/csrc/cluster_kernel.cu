@@ -26,6 +26,7 @@
 
 #include <cstdint>
 
+#define PTK_KERNEL "cluster_kernel"
 #include "common.cuh"
 
 namespace {
@@ -41,7 +42,7 @@ cluster_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
                const float* __restrict__ tree,
                const int* __restrict__ start, const int* __restrict__ count,
                float* __restrict__ t_out, int* __restrict__ slot_out,
-               int n_rays, int n_clusters, int tree_depth) {
+               int n_rays, int n_clusters, int tree_depth, int n_tri_rows) {
   // Shared memory: each thread's stack slice (entry k of thread x at
   // k * kThreads + x), then, with kSmem, the nodes, starts and counts.
   extern __shared__ float4 smem[];
@@ -56,10 +57,10 @@ cluster_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
     int* ss = reinterpret_cast<int*>(sn + 4 * n_nodes);
     int* sc = ss + n_clusters;
     for (int i = threadIdx.x; i < 4 * n_nodes; i += blockDim.x)
-      sn[i] = nodes[i];
+      sn[PTK_IX(sn, i, 4 * n_nodes)] = nodes[PTK_IX(nodes, i, 4 * n_nodes)];
     for (int i = threadIdx.x; i < n_clusters; i += blockDim.x) {
-      ss[i] = start[i];
-      sc[i] = count[i];
+      ss[PTK_IX(ss, i, n_clusters)] = start[PTK_IX(start, i, n_clusters)];
+      sc[PTK_IX(sc, i, n_clusters)] = count[PTK_IX(count, i, n_clusters)];
     }
     __syncthreads();
     nodes = sn;
@@ -69,21 +70,27 @@ cluster_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
 
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const float ox = rays[r], oy = rays[n_rays + r], oz = rays[2 * n_rays + r];
-  const float dx = rays[3 * n_rays + r], dy = rays[4 * n_rays + r],
-              dz = rays[5 * n_rays + r];
+  const float ox = rays[PTK_IX(rays, r, 6 * n_rays)];
+  const float oy = rays[PTK_IX(rays, n_rays + r, 6 * n_rays)];
+  const float oz = rays[PTK_IX(rays, 2 * n_rays + r, 6 * n_rays)];
+  const float dx = rays[PTK_IX(rays, 3 * n_rays + r, 6 * n_rays)];
+  const float dy = rays[PTK_IX(rays, 4 * n_rays + r, 6 * n_rays)];
+  const float dz = rays[PTK_IX(rays, 5 * n_rays + r, 6 * n_rays)];
   // IEEE division: d == 0 must give inf for the slab test.
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
 
   float best_t = ptk::kInf;
   int best = -1;
   ptk::walk_tree<!kSmem>(
-      nodes, n_nodes, stack, kThreads, ox, oy, oz, ix, iy, iz, best_t,
-      [&](int c) {
-        const int s0 = kSmem ? s_start[c] : __ldg(start + c);
-        const int s1 = s0 + (kSmem ? s_count[c] : __ldg(count + c));
+      nodes, n_nodes, stack, kThreads, tree_depth, ox, oy, oz, ix, iy, iz,
+      best_t, [&](int c) {
+        const int cc = PTK_IX(start, c, n_clusters);
+        const int s0 = kSmem ? s_start[cc] : __ldg(start + cc);
+        const int s1 = s0 + (kSmem ? s_count[cc] : __ldg(count + cc));
         for (int i = s0; i < s1; ++i) {
-          const float* p = tris + static_cast<size_t>(i) * kTriCols;
+          const float* p =
+              tris + static_cast<size_t>(PTK_IX(tris, i, n_tri_rows)) *
+                         kTriCols;
           const float t = ptk::mt_hit(
               __ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3),
               __ldg(p + 4), __ldg(p + 5), __ldg(p + 6), __ldg(p + 7),
@@ -94,8 +101,8 @@ cluster_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
           }
         }
       });
-  t_out[r] = best_t;
-  slot_out[r] = best;
+  t_out[PTK_IX(t_out, r, n_rays)] = best_t;
+  slot_out[PTK_IX(slot_out, r, n_rays)] = best;
 }
 
 }  // namespace
@@ -104,17 +111,19 @@ cluster_kernel(const float* __restrict__ rays, const float* __restrict__ tris,
 // n_rays a multiple of 256) against `n_clusters` clusters: `tree`, the
 // (n_clusters - 1, 16) box tree over the clusters, of depth `tree_depth` (at
 // most kTreeStack; 0 for one cluster), start and count (C,), packed rows
-// (P, 9).  Writes t (n_rays,) and the packed row (n_rays,), -1 on a miss.
-// Launches on `stream` of `device` and returns cudaGetLastError() as an
-// int: 0 when the launch was accepted.
+// (n_tri_rows, 9; the row count only the checked build reads, PTK_IX).
+// Writes t (n_rays,) and the packed row (n_rays,), -1 on a miss.  Launches
+// on `stream` of `device` and returns cudaGetLastError() as an int: 0 when
+// the launch was accepted.
 extern "C" int pt_cluster_intersect(const float* rays, const float* tris,
                                     const float* tree, const int* start,
                                     const int* count, float* t_out,
                                     int* slot_out, int n_rays,
                                     int n_clusters, int tree_depth,
-                                    int device, void* stream) {
+                                    int n_tri_rows, int device,
+                                    void* stream) {
   if (n_rays < kThreads || n_rays % kThreads != 0 || n_clusters < 1 ||
-      tree_depth < 0 || tree_depth > ptk::kTreeStack ||
+      n_tri_rows < 1 || tree_depth < 0 || tree_depth > ptk::kTreeStack ||
       (n_clusters == 1) != (tree_depth == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -141,13 +150,13 @@ extern "C" int pt_cluster_intersect(const float* rays, const float* tris,
   if (use_smem) {
     cluster_kernel<true><<<blocks, kThreads, stack + tables, st>>>(
         rays, tris, tree, start, count, t_out, slot_out, n_rays, n_clusters,
-        tree_depth);
+        tree_depth, n_tri_rows);
   } else {
     err = ptk::prepare_smem(cluster_kernel<false>, stack, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cluster_kernel<false><<<blocks, kThreads, stack, st>>>(
         rays, tris, tree, start, count, t_out, slot_out, n_rays, n_clusters,
-        tree_depth);
+        tree_depth, n_tri_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -72,6 +72,7 @@
 #include <climits>
 #include <cstdint>
 
+#define PTK_KERNEL "trace_kernel"
 #include "common.cuh"
 
 namespace {
@@ -142,9 +143,11 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
   float4* s_rows = smem;
   float* s_tab = reinterpret_cast<float*>(smem + n_rows * kW);
   for (int i = threadIdx.x; i < n_rows * kW; i += blockDim.x)
-    s_rows[i] = rows[i];
+    s_rows[PTK_IX(s_rows, i, n_rows * kW)] =
+        rows[PTK_IX(rows, i, n_rows * kW)];
   for (int i = threadIdx.x; i < n_tris * kTabCols; i += blockDim.x)
-    s_tab[i] = tab[i];
+    s_tab[PTK_IX(s_tab, i, n_tris * kTabCols)] =
+        tab[PTK_IX(tab, i, n_tris * kTabCols)];
   __syncthreads();
 
   // The warp's pool: its first n_valid pixels (a prefix: the last warp of
@@ -158,8 +161,10 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
   const int warp_pix0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
   const int n_valid = min(32, width * band_h - warp_pix0);
   if (n_valid <= 0) return;  // the whole warp: no pixel of the band
-  float* s_slot = s_tab + n_tris * kTabCols +
-                  static_cast<size_t>(threadIdx.x & ~31) * kWindow * 3;
+  float* s_slot =
+      s_tab + n_tris * kTabCols +
+      static_cast<size_t>(PTK_IX(s_slot, threadIdx.x & ~31, kThreads)) *
+          kWindow * 3;
   const int n_samples = depth > 0 ? spp : 0;
 
   // Path state.  cam: [pos(3), right(3), up(3), distance * forward(3),
@@ -202,7 +207,7 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
     oz = __ldg(cam + 2);
     thr_r = thr_g = thr_b = 1.0f;
     b = 0;
-    slot = (pl * kWindow + k) * 3;
+    slot = PTK_IX(s_slot, pl * kWindow + k, 32 * kWindow) * 3;
   };
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -238,7 +243,7 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
           float t[kUnroll];
 #pragma unroll
           for (int i = 0; i < kUnroll; ++i) {
-            const float4* r = s_rows + (k + i) * kW;
+            const float4* r = s_rows + PTK_IX(s_rows, k + i, n_rows) * kW;
             t[i] = test_plucker(r, r + sel, tx, ty, tz, cx, cy, cz, dx, dy,
                                 dz);
           }
@@ -256,7 +261,8 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
           float t[kUnroll];
 #pragma unroll
           for (int i = 0; i < kUnroll; ++i)
-            t[i] = test_mt(s_rows + (k + i) * kW, ox, oy, oz, dx, dy, dz);
+            t[i] = test_mt(s_rows + PTK_IX(s_rows, k + i, n_rows) * kW, ox,
+                           oy, oz, dx, dy, dz);
 #pragma unroll
           for (int i = 0; i < kUnroll; ++i) {
             if (t[i] < best_t) {
@@ -271,7 +277,7 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
       bool ends = best < 0;
       float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
       if (!ends) {
-        const float* row = s_tab + best * kTabCols;
+        const float* row = s_tab + PTK_IX(s_tab, best, n_tris) * kTabCols;
         const float col_r = row[0], col_g = row[1], col_b = row[2];
         const float flags = row[7];
         if (flags > 1.5f) {  // EMIT: add the emission
@@ -362,7 +368,8 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
     __syncwarp();
     if (lane < n_valid) {
       for (int k = 0; k < min(kWindow, n_samples - w0); ++k) {
-        const float* r = s_slot + (lane * kWindow + k) * 3;
+        const float* r =
+            s_slot + PTK_IX(s_slot, lane * kWindow + k, 32 * kWindow) * 3;
         acc_r = acc_r + r[0];
         acc_g = acc_g + r[1];
         acc_b = acc_b + r[2];
@@ -371,7 +378,10 @@ trace_kernel(const float4* __restrict__ rows, const float* __restrict__ tab,
     __syncwarp();
   }
   if (lane < n_valid) {
-    float* out = film + static_cast<size_t>(warp_pix0 + lane) * 3;
+    float* out =
+        film +
+        static_cast<size_t>(PTK_IX(film, warp_pix0 + lane, width * band_h)) *
+            3;
     out[0] = out[0] + acc_r;
     out[1] = out[1] + acc_g;
     out[2] = out[2] + acc_b;

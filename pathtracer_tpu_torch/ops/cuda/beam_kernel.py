@@ -59,8 +59,8 @@ SEGMENTS_PER_CALL = 1 << 25   # default launch size in ray segments
 LAUNCHES = 0          # kernel launches since the last reset
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-             + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 _ACCEL_CACHE = []     # [((fingerprint, device), accel)], newest last
 _RASTER_CACHE = {}    # (wp, hp, device) -> raster index tensor
@@ -393,7 +393,9 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
                  n_tiles,
                  camera.height, wp // _SQ, tile0, (sample0 + s) & prng.MASK,
                  spp, depth, seed_mix, int(scene.has_specular),
-                 int(accel.mats_inline), index, stream)
+                 int(accel.mats_inline), accel.mats.shape[0],
+                 accel.cl_bounds.shape[0], accel.tri_cols.shape[0], index,
+                 stream)
         if err != 0:
             raise RuntimeError(f"beam kernel launch failed: "
                                f"{build.error_string(lib, err)} "

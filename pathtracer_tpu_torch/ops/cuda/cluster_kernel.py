@@ -49,7 +49,7 @@ _MORTON_BITS = 6      # per axis: 18-bit cell, 3-bit octant sort keys
 
 LAUNCHES = 0          # kernel launches since the last reset
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 _CLUSTER_CACHE = []   # [((fingerprint, device), cluster set)], newest last
 
@@ -200,8 +200,8 @@ def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     err = fn(planes.data_ptr(), tris.data_ptr(), tree.data_ptr(),
              start.data_ptr(), count.data_ptr(), t.data_ptr(),
-             slot.data_ptr(), Rp, cs.num_clusters, cs.tree_depth, index,
-             torch.cuda.current_stream(dev).cuda_stream)
+             slot.data_ptr(), Rp, cs.num_clusters, cs.tree_depth,
+             tris.shape[0], index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cluster kernel launch failed: "
                            f"{build.error_string(lib, err)} (cudaError {err})")

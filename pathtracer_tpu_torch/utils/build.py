@@ -8,6 +8,12 @@ edited source never loads a stale library.  The library has a plain C interface
 and is loaded with ctypes; each wrapper declares the ``argtypes`` of the
 functions it calls.  Nothing is downloaded and nothing prebuilt is kept in
 the repository.  Importing this module needs no ``nvcc``.
+
+The checked build (``checked=True``) compiles the same sources with
+``-DPTK_CHECKED`` into ``libpathtracer_tpu_torch_checked-<hash>.so``: every
+array index of the kernels is bounds-checked (``csrc/common.cuh::PTK_IX``),
+and an index out of range prints the kernel, the array and the index and
+traps.  It has the same C interface, and gives the same bits.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ LIB_NAME = "libpathtracer_tpu_torch"
 # operation as the plain PyTorch versions do (see csrc/trace_kernel.cu).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
+CHECKED_FLAGS = ("-DPTK_CHECKED",)
 
 _LOADED = {}
 
@@ -63,26 +70,32 @@ def _sources(csrc: Path, names):
     return sources
 
 
+def _flags(checked: bool):
+    return NVCC_FLAGS + CHECKED_FLAGS if checked else NVCC_FLAGS
+
+
 def library_path(csrc: Path = CSRC, name: str = LIB_NAME,
-                 sources=None) -> Path:
+                 sources=None, checked: bool = False) -> Path:
     digest = hashlib.sha256()
     for src in sorted([*_sources(csrc, sources), *csrc.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(checked)).encode())
+    name = f"{name}_checked" if checked else name
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_library(csrc: Path = CSRC, name: str = LIB_NAME,
-                  sources=None) -> Build:
+                  sources=None, checked: bool = False) -> Build:
     """Compile the sources unless a library for their hash exists: one
     ``nvcc -c`` per source, run in parallel, then one link.  By default
     every ``.cu`` of this package's ``csrc/``; ``csrc``, ``name`` and
     ``sources`` (file names) build another set, such as an older
-    checkout's kernels for an A/B.  A failed ``nvcc`` raises
-    ``RuntimeError`` with its output."""
+    checkout's kernels for an A/B; ``checked`` builds the bounds-checked
+    library.  A failed ``nvcc`` raises ``RuntimeError`` with its
+    output."""
     csrc = Path(csrc)
-    path = library_path(csrc, name, sources)
+    path = library_path(csrc, name, sources, checked)
     if path.exists():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,7 +105,7 @@ def build_library(csrc: Path = CSRC, name: str = LIB_NAME,
         jobs = []
         for src in _sources(csrc, sources):
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            cmd = [nvcc, *_flags(checked), "-c", str(src), "-o", obj]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -128,17 +141,21 @@ def error_string(lib: ctypes.CDLL, code: int) -> str:
 
 
 def load_library(csrc: Path = CSRC, name: str = LIB_NAME,
-                 sources=None) -> ctypes.CDLL:
+                 sources=None, checked: bool = False) -> ctypes.CDLL:
     """The kernel library (by default this package's; the arguments as in
     ``build_library``), built if needed and loaded once per process: the
     sources are hashed at the first call only, since the wrappers call this
     on every launch (reading and hashing them took milliseconds a call on a
-    machine with the card, more than a cluster-kernel launch)."""
-    key = (str(csrc), name, None if sources is None else tuple(sources))
+    machine with the card, more than a cluster-kernel launch).  The
+    wrappers call it with the defaults; to run them on the checked library,
+    replace ``load_library`` with ``functools.partial(load_library,
+    checked=True)``."""
+    key = (str(csrc), name, None if sources is None else tuple(sources),
+           checked)
     lib = _LOADED.get(key)
     if lib is None:
         lib = _LOADED[key] = ctypes.CDLL(
-            str(build_library(csrc, name, sources).path))
+            str(build_library(csrc, name, sources, checked).path))
     return lib
 
 

@@ -16,7 +16,10 @@ film bar of the CPU parity tests, atol 2e-4 on all but 1% of the pixels
 
 import ctypes
 import dataclasses
+import functools
 import math
+import os
+import sys
 
 import pytest
 import torch
@@ -25,6 +28,10 @@ import pathtracer_tpu_torch as tpt
 from pathtracer_tpu_torch.ops.cuda import beam_kernel as tbk
 from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 FILM_ATOL = 2e-4
 MAX_FLIP_SHARE = 0.01
@@ -411,41 +418,6 @@ def test_large_scene_wrappers_do_not_synchronise(cuda_device):
     assert pending and seconds < 0.25
 
 
-class _GuardedTorch:
-    """The torch module, except that ``zeros`` and ``empty`` return views
-    into the middle of larger buffers whose margins hold a sentinel: a
-    kernel that writes past either end of an output changes a margin."""
-
-    MARGIN = 1 << 16   # elements on each side of an output
-
-    def __init__(self):
-        self.buffers = []
-
-    def __getattr__(self, name):
-        return getattr(torch, name)
-
-    def _guarded(self, shape, dtype, device, zero):
-        shape = (shape,) if isinstance(shape, int) else tuple(shape)
-        n = math.prod(shape)
-        sentinel = -7777.0 if dtype.is_floating_point else -7777
-        buf = torch.full((n + 2 * self.MARGIN,), sentinel, dtype=dtype,
-                         device=device)
-        self.buffers.append((buf, sentinel))
-        out = buf[self.MARGIN:self.MARGIN + n].view(shape)
-        return out.zero_() if zero else out
-
-    def zeros(self, shape, *, dtype=torch.float32, device=None):
-        return self._guarded(shape, dtype, device, True)
-
-    def empty(self, shape, *, dtype=torch.float32, device=None):
-        return self._guarded(shape, dtype, device, False)
-
-    def margins_intact(self):
-        m = self.MARGIN
-        return all(bool((b[:m] == s).all() and (b[-m:] == s).all())
-                   for b, s in self.buffers)
-
-
 TRACE_INSTANCES = {   # (scene, loop): all four trace kernel instances
     "trace": ("specular", None),
     "trace_mt": ("specular", "mt"),
@@ -463,7 +435,7 @@ def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
     launch must give the same bits (a shared-memory race would not).  The
     CUDA sanitizer tools do not run on every machine with a card; this
     test does."""
-    guard = _GuardedTorch()
+    guard = chip_smoke.GuardedTorch()
     if kernel in TRACE_INSTANCES:
         name, loop = TRACE_INSTANCES[kernel]
         cam, scene = _on(cuda_device, name, (64, 48))
@@ -502,7 +474,7 @@ def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
     first = run()
     second = run()
     torch.cuda.synchronize()
-    assert len(guard.buffers) >= 2 and guard.margins_intact()
+    assert len(guard.buffers) >= 2 and guard.hits() == 0
     assert bool(torch.isfinite(first).all()) and torch.equal(first, second)
     assert float(first.sum()) > 0.0
 
@@ -640,3 +612,28 @@ def test_wavefront_compaction_is_bit_identical(cuda_device, backend):
                                 compact_every=1)
     torch.cuda.synchronize()
     assert float(base.mean()) > 0.0 and torch.equal(film, base)
+
+
+# A few of chip_smoke.py phase 15's randomized cases (the whole sweep runs
+# there): random scenes at odd launch shapes, on the normal library and on
+# the bounds-checked one, whose out-of-range index traps.
+FUZZ_CASES = [("trace", 0), ("trace", 107), ("trace", -3), ("trace", -1),
+              ("cluster", 0), ("cluster", -1), ("beam", 1), ("beam", -2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checked", [False, True])
+@pytest.mark.parametrize("kind,index", FUZZ_CASES)
+def test_fuzz_cases_match_plain(cuda_device, monkeypatch, kind, index,
+                                checked):
+    """Each kernel bit for bit against its plain version on a random
+    scene, a second launch bit for bit against the first, and every
+    guarded buffer's NaN margins untouched."""
+    from pathtracer_tpu_torch.utils import build
+
+    monkeypatch.setattr(build, "load_library", functools.partial(
+        build.load_library, checked=checked))
+    case = getattr(chip_smoke, f"fuzz_{kind}_cases")()[index]
+    got = chip_smoke.run_fuzz_case(tpt, cuda_device, kind, case)
+    assert got["launches"] == 2 and got["buffers"] >= 2
+    assert got["equal"] and got["repeat"] and got["guard_hits"] == 0
