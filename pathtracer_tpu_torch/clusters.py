@@ -32,6 +32,7 @@ import torch
 from . import materials as mat
 from .bvh import FlatBVH, _host_arrays, build_bvh
 from .scene import Scene
+from .utils.profiling import trace_annotation
 
 DEFAULT_CLUSTER_TRIS = 64   # cluster cut size
 PACK_PAD = 8                # degenerate rows after the packed triangles
@@ -55,16 +56,19 @@ def cached_accel(cache: List, scene: Scene, build: Callable[[Scene], object]):
     of ``((fingerprint, device), accel)`` pairs, newest last.  The key is
     the scene's byte fingerprint (``Scene.fingerprint``).  The least
     recently used accel goes first: a hit moves to the newest end, so the
-    accel just served is never the one evicted."""
-    key = (scene.fingerprint(), str(scene.device))
-    for i, (k, a) in enumerate(cache):
-        if k == key:
-            cache.append(cache.pop(i))
-            return a
-    a = build(scene).to(scene.device)
-    cache.append((key, a))
-    del cache[:-CACHE_SIZE]
-    return a
+    accel just served is never the one evicted.  Spans: ``pt.accel.lookup``
+    over the whole call, ``pt.accel.build`` over a miss's build."""
+    with trace_annotation("pt.accel.lookup"):
+        key = (scene.fingerprint(), str(scene.device))
+        for i, (k, a) in enumerate(cache):
+            if k == key:
+                cache.append(cache.pop(i))
+                return a
+        with trace_annotation("pt.accel.build"):
+            a = build(scene).to(scene.device)
+        cache.append((key, a))
+        del cache[:-CACHE_SIZE]
+        return a
 
 
 def _to(obj, fields, device):

@@ -42,6 +42,7 @@ from .diff import _backend, make_accel, render_film_diff
 from .ops.cuda import cluster_kernel
 from .scene import Scene
 from .utils import checkpoint as ckpt
+from .utils.profiling import trace_annotation
 
 PARAM_NAMES = ("albedo", "emit", "roughness")   # sorted: checkpoint order
 LOSSES = ("paired", "relative", "mse", "sqrt")
@@ -189,37 +190,53 @@ class _Problem:
 
 def _train_step(pb: _Problem, params: Dict[str, torch.Tensor],
                 opt: torch.optim.Adam, k: int, lr: float) -> float:
-    """One optimizer step at learning rate ``lr``; returns the loss."""
-    leaves = [params[n] for n in PARAM_NAMES]
-    loss = pb.value(params, k)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-    if pb.rough_spsa:
-        # The pathwise roughness gradient is boundary-dominated (diff.py)
-        # and measured wrong-signed; the expected paired loss is smooth in
-        # roughness, so a two-point estimate with common random numbers
-        # (the same sample window on both sides) takes its place.
-        r = params["roughness"]
-        delta = spsa_signs(pb.seed, k, r.shape[0]).to(r.device) \
-            * (pb.masks["roughness"] > 0)
-        with torch.no_grad():
-            up = pb.value({**params, "roughness": r + SPSA_EPS * delta}, k)
-            dn = pb.value({**params, "roughness": r - SPSA_EPS * delta}, k)
-        grads[PARAM_NAMES.index("roughness")] = (
-            (up - dn) / (2.0 * SPSA_EPS) * delta)
-    old = [p.detach().clone() for p in leaves]
-    for p, g in zip(leaves, grads):
-        p.grad = g
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
-    with torch.no_grad():
-        # Mask the UPDATE, as the JAX package does: Adam's moments take
-        # every coordinate's gradient; frozen and type-masked coordinates
-        # keep their values.
-        for n, p, o in zip(PARAM_NAMES, leaves, old):
-            p.copy_(torch.where(pb.masks[n] > 0, p, o))
-    return float(loss.detach())
+    """One optimizer step at learning rate ``lr``; returns the loss.
+
+    Spans: ``pt.train_step`` over the step, and inside it, in order,
+    ``pt.step.forward`` (the renders and the loss), ``pt.step.backward``,
+    ``pt.step.spsa`` (only when roughness takes SPSA), ``pt.step.update``
+    (Adam and the masked copy) and ``pt.step.sync`` (the host's wait for
+    the loss)."""
+    with trace_annotation("pt.train_step"):
+        leaves = [params[n] for n in PARAM_NAMES]
+        with trace_annotation("pt.step.forward"):
+            loss = pb.value(params, k)
+        with trace_annotation("pt.step.backward"):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))]
+        if pb.rough_spsa:
+            # The pathwise roughness gradient is boundary-dominated
+            # (diff.py) and measured wrong-signed; the expected paired loss
+            # is smooth in roughness, so a two-point estimate with common
+            # random numbers (the same sample window on both sides) takes
+            # its place.
+            with trace_annotation("pt.step.spsa"):
+                r = params["roughness"]
+                delta = spsa_signs(pb.seed, k, r.shape[0]).to(r.device) \
+                    * (pb.masks["roughness"] > 0)
+                with torch.no_grad():
+                    up = pb.value({**params,
+                                   "roughness": r + SPSA_EPS * delta}, k)
+                    dn = pb.value({**params,
+                                   "roughness": r - SPSA_EPS * delta}, k)
+                grads[PARAM_NAMES.index("roughness")] = (
+                    (up - dn) / (2.0 * SPSA_EPS) * delta)
+        with trace_annotation("pt.step.update"):
+            old = [p.detach().clone() for p in leaves]
+            for p, g in zip(leaves, grads):
+                p.grad = g
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            with torch.no_grad():
+                # Mask the UPDATE, as the JAX package does: Adam's moments
+                # take every coordinate's gradient; frozen and type-masked
+                # coordinates keep their values.
+                for n, p, o in zip(PARAM_NAMES, leaves, old):
+                    p.copy_(torch.where(pb.masks[n] > 0, p, o))
+        with trace_annotation("pt.step.sync"):
+            return float(loss.detach())
 
 
 def _opt_leaves(opt: torch.optim.Adam, params, with_schedule: bool

@@ -45,6 +45,7 @@ from ...linalg import FLOAT_INF, SHIFT_BIAS, dot
 from ...materials import _TWO_PI, SPECULAR_TRIES
 from ...scene import Scene
 from ...utils import build
+from ...utils.profiling import trace_annotation
 from ..intersect import (MOMENT_OPS, PLUCKER_OPS, SLAB_OPS, boxes_entered,
                          intersect_packed)
 from .trace_kernel import MAX_DET, SHADE_OPS, _camera_params
@@ -382,26 +383,26 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     wp, _ = _padded_res(*camera.res)
     seed_mix = (int(seed) * prng.SEED_MIX) & prng.MASK
     s = 0
-    while s < samples:
-        spp = min(spp_per_call, samples - s)
-        err = fn(cam.data_ptr(), accel.sc_tree.data_ptr(),
-                 accel.sc_first.data_ptr(), accel.sc_ncl.data_ptr(),
-                 accel.mats.data_ptr(), accel.cl_bounds.data_ptr(),
-                 accel.tri_cols.data_ptr(), film.data_ptr(),
-                 None if counts is None else counts.data_ptr(),
-                 accel.num_superclusters, accel.sc_tree_depth, accel.ctris,
-                 n_tiles,
-                 camera.height, wp // _SQ, tile0, (sample0 + s) & prng.MASK,
-                 spp, depth, seed_mix, int(scene.has_specular),
-                 int(accel.mats_inline), accel.mats.shape[0],
-                 accel.cl_bounds.shape[0], accel.tri_cols.shape[0], index,
-                 stream)
-        if err != 0:
-            raise RuntimeError(f"beam kernel launch failed: "
-                               f"{build.error_string(lib, err)} "
-                               f"(cudaError {err})")
-        LAUNCHES += 1
-        s += spp
+    with trace_annotation("pt.beam.launches"):
+        while s < samples:
+            spp = min(spp_per_call, samples - s)
+            err = fn(cam.data_ptr(), accel.sc_tree.data_ptr(),
+                     accel.sc_first.data_ptr(), accel.sc_ncl.data_ptr(),
+                     accel.mats.data_ptr(), accel.cl_bounds.data_ptr(),
+                     accel.tri_cols.data_ptr(), film.data_ptr(),
+                     None if counts is None else counts.data_ptr(),
+                     accel.num_superclusters, accel.sc_tree_depth,
+                     accel.ctris, n_tiles, camera.height, wp // _SQ, tile0,
+                     (sample0 + s) & prng.MASK, spp, depth, seed_mix,
+                     int(scene.has_specular), int(accel.mats_inline),
+                     accel.mats.shape[0], accel.cl_bounds.shape[0],
+                     accel.tri_cols.shape[0], index, stream)
+            if err != 0:
+                raise RuntimeError(f"beam kernel launch failed: "
+                                   f"{build.error_string(lib, err)} "
+                                   f"(cudaError {err})")
+            LAUNCHES += 1
+            s += spp
     return film
 
 

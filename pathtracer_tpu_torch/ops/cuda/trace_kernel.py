@@ -49,6 +49,7 @@ from ...image import Film
 from ...rng import MASK, SEED, SEED_MIX
 from ...scene import Scene
 from ...utils import build
+from ...utils.profiling import trace_annotation
 from ..intersect import (MOMENT_OPS, PLUCKER_OPS, PLUCKER_PRIMARY_OPS,
                          intersect_plucker)
 from ..trace import sample_radiance, shade_table
@@ -150,10 +151,13 @@ def _plucker_rows(scene: Scene, camera: Camera) -> torch.Tensor:
     """``_triangle_params_plucker`` on the scene's device, from a small
     cache keyed by the vertex bytes, the camera position and the device:
     the host packing reaches the device by a copy, which waits for the
-    stream, so a repeated call must not pay it."""
-    h = hashlib.sha1()
-    for arr in scene.host_verts():
-        h.update(np.ascontiguousarray(arr).tobytes())
+    stream, so a repeated call must not pay it.  The key's hashing is the
+    span ``pt.scene.hash``."""
+    verts = scene.host_verts()
+    with trace_annotation("pt.scene.hash"):
+        h = hashlib.sha1()
+        for arr in verts:
+            h.update(np.ascontiguousarray(arr).tobytes())
     pos = camera.host_pos()
     key = (scene.num_tris, h.hexdigest(), pos.tobytes(), str(scene.device))
     for i, (k, rows) in enumerate(_ROWS_CACHE):
@@ -412,20 +416,21 @@ def render_sum_cuda(camera: Camera, scene: Scene, sample0: int,
     seed_mix = (int(seed) * SEED_MIX) & MASK
 
     s = 0
-    while s < samples:
-        spp = min(spp_per_call, samples - s)
-        err = fn(rows.data_ptr(), tab.data_ptr(), cam.data_ptr(),
-                 film.data_ptr(), n_rows, scene.num_tris, camera.width,
-                 band_h, camera.height, h0, (sample0 + s) & MASK, spp, depth,
-                 seed_mix, int(scene.has_specular), LOOPS.index(loop), index,
-                 stream)
-        if err != 0:
-            raise RuntimeError(f"trace kernel launch failed: "
-                               f"{build.error_string(lib, err)} "
-                               f"(cudaError {err})")
-        LAUNCHES += 1
-        LOOP_LAUNCHES[loop] += 1
-        s += spp
+    with trace_annotation("pt.trace.launches"):
+        while s < samples:
+            spp = min(spp_per_call, samples - s)
+            err = fn(rows.data_ptr(), tab.data_ptr(), cam.data_ptr(),
+                     film.data_ptr(), n_rows, scene.num_tris, camera.width,
+                     band_h, camera.height, h0, (sample0 + s) & MASK, spp,
+                     depth, seed_mix, int(scene.has_specular),
+                     LOOPS.index(loop), index, stream)
+            if err != 0:
+                raise RuntimeError(f"trace kernel launch failed: "
+                                   f"{build.error_string(lib, err)} "
+                                   f"(cudaError {err})")
+            LAUNCHES += 1
+            LOOP_LAUNCHES[loop] += 1
+            s += spp
     return film
 
 

@@ -37,6 +37,7 @@ from ..ops.cuda import beam_kernel as bk
 from ..ops.cuda import trace_kernel as tk
 from ..render import TARGET_RAYS_PER_PASS
 from ..scene import Scene
+from ..utils.profiling import trace_annotation
 from .distributed import all_gather, ordered_sum
 from .mesh import SAMPLE_AXIS, TILE_AXIS, RankMesh
 
@@ -128,15 +129,19 @@ def render_film_sharded_cuda(mesh: RankMesh, camera: Camera, scene: Scene,
     ti, si = mesh.coords
     if height % n_tile == 0 and samples % n_sample == 0:
         band_h, spp_local = height // n_tile, samples // n_sample
-        acc = tk.render_sum_cuda(camera, scene, si * spp_local, spp_local,
-                                 depth, seed=seed, h0=ti * band_h,
-                                 band_h=band_h)
-        film = _reduce_bands(mesh, acc, 0)
+        with trace_annotation("pt.shard.band"):
+            acc = tk.render_sum_cuda(camera, scene, si * spp_local,
+                                     spp_local, depth, seed=seed,
+                                     h0=ti * band_h, band_h=band_h)
+        with trace_annotation("pt.shard.gather"):
+            film = _reduce_bands(mesh, acc, 0)
     else:
         sample0, spp_local = _sample_only(mesh, samples)
-        acc = tk.render_sum_cuda(camera, scene, sample0, spp_local, depth,
-                                 seed=seed)
-        film = ordered_sum(all_gather(acc, None, mesh.size))
+        with trace_annotation("pt.shard.band"):
+            acc = tk.render_sum_cuda(camera, scene, sample0, spp_local,
+                                     depth, seed=seed)
+        with trace_annotation("pt.shard.gather"):
+            film = ordered_sum(all_gather(acc, None, mesh.size))
     return Film(camera.res, data=film / samples)
 
 
@@ -164,16 +169,20 @@ def render_film_sharded_beam(mesh: RankMesh, camera: Camera, scene: Scene,
             and (n_tiles // n_tile) % tiles_per_sqrow == 0
             and samples % n_sample == 0):
         tiles_local, spp_local = n_tiles // n_tile, samples // n_sample
-        acc = bk.render_tiles_beam(camera, scene, si * spp_local, spp_local,
-                                   depth, seed=seed, accel=accel,
-                                   tile0=ti * tiles_local,
-                                   n_tiles=tiles_local)
-        flat = _reduce_bands(mesh, acc, 1)
+        with trace_annotation("pt.shard.band"):
+            acc = bk.render_tiles_beam(camera, scene, si * spp_local,
+                                       spp_local, depth, seed=seed,
+                                       accel=accel, tile0=ti * tiles_local,
+                                       n_tiles=tiles_local)
+        with trace_annotation("pt.shard.gather"):
+            flat = _reduce_bands(mesh, acc, 1)
     else:
         sample0, spp_local = _sample_only(mesh, samples)
-        acc = bk.render_tiles_beam(camera, scene, sample0, spp_local, depth,
-                                   seed=seed, accel=accel)
-        flat = ordered_sum(all_gather(acc, None, mesh.size))
+        with trace_annotation("pt.shard.band"):
+            acc = bk.render_tiles_beam(camera, scene, sample0, spp_local,
+                                       depth, seed=seed, accel=accel)
+        with trace_annotation("pt.shard.gather"):
+            flat = ordered_sum(all_gather(acc, None, mesh.size))
     return Film(camera.res, data=bk._to_raster(flat, width, height) / samples)
 
 

@@ -51,6 +51,7 @@ from .ops.cuda import beam_kernel, cluster_kernel, trace_kernel
 from .ops.intersect import intersect_brute, intersect_bvh
 from .scene import Scene
 from .utils import checkpoint as ckpt
+from .utils.profiling import trace_annotation
 from .utils.timer import Timer
 
 BRUTE_MAX = 512                  # max padded triangle count for the dense path
@@ -218,73 +219,77 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
     ``checkpoint_every`` completed schedule entries.
     ``_abort_after``: testing hook — save and abort after this many
     schedule entries.
+    The span ``pt.render_film`` covers the whole call, the choice of the
+    ``"auto"`` backend included.
     """
-    if scene.num_tris == 0:
-        raise ValueError("No triangles in scene.")
-    if backend == "auto":
-        backend = _auto_backend(camera, scene)
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} is not in {BACKENDS}")
-    if backend in ("cuda", "beam"):
-        if checkpoint is None:
-            if backend == "cuda":
-                return trace_kernel.render_film_cuda(camera, scene, samples,
-                                                     depth, seed=seed)
-            return beam_kernel.render_film_beam(camera, scene, samples,
-                                                depth, seed=seed)
-        return _render_windows_checkpointed(
-            backend, camera, scene, samples, depth, seed=seed,
-            checkpoint=checkpoint, checkpoint_every=checkpoint_every,
-            verbose=verbose, _abort_after=_abort_after)
-    if backend == "wavefront":
-        if checkpoint is not None:
-            raise ValueError(
-                "backend='wavefront' does not support checkpointing (the "
-                "render keeps no host-visible sample boundary to save at); "
-                "use backend='cuda', 'beam' or the tile backends for "
-                "resumable renders")
-        from .ops.wavefront import render_wavefront
-        return Film(camera.res, data=render_wavefront(
-            camera, scene, samples, depth, bvh=bvh, seed=seed))
-
-    width, height = camera.res
-    tile_h, spp_b, blocks = _plan(width, height, samples, scene.padded_size,
-                                  backend)
-    intersect, park = _tile_intersect(backend, scene, bvh)
-    table = trace_ops.shade_table(scene)
-    sched = _sample_schedule(samples, spp_b, blocks)
-    meta = {"width": width, "height": height, "samples": samples,
-            "depth": depth, "seed": seed, "backend": backend,
-            "tile_h": tile_h, "spp_b": spp_b, **_scene_keys(scene)}
-    film = torch.zeros((height, width, 3), dtype=torch.float32,
-                       device=scene.device)
-    film, samples_done = _resume(checkpoint, meta, film, verbose)
-
-    for ei, (s0, this_spp, nb) in enumerate(sched):
-        if s0 < samples_done:
-            continue
-        for h0 in range(0, height, tile_h):
-            th = min(tile_h, height - h0)
-            film[h0:h0 + th] += _tile_sum(camera, scene, table, h0, th, s0,
-                                          this_spp, nb, depth, seed,
-                                          intersect, park)
-        samples_done = s0 + this_spp * nb
-        if verbose:
-            print(f"\rRendered: {samples_done}/{samples} spp.", end="",
-                  flush=True)
-        if checkpoint is not None and (
-                ei % checkpoint_every == checkpoint_every - 1
-                or samples_done >= samples):
-            ckpt.save_render_checkpoint(checkpoint, film, samples_done, meta)
-        if _abort_after is not None and ei + 1 >= _abort_after:
+    with trace_annotation("pt.render_film"):
+        if scene.num_tris == 0:
+            raise ValueError("No triangles in scene.")
+        if backend == "auto":
+            backend = _auto_backend(camera, scene)
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} is not in {BACKENDS}")
+        if backend in ("cuda", "beam"):
+            if checkpoint is None:
+                if backend == "cuda":
+                    return trace_kernel.render_film_cuda(
+                        camera, scene, samples, depth, seed=seed)
+                return beam_kernel.render_film_beam(camera, scene, samples,
+                                                    depth, seed=seed)
+            return _render_windows_checkpointed(
+                backend, camera, scene, samples, depth, seed=seed,
+                checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+                verbose=verbose, _abort_after=_abort_after)
+        if backend == "wavefront":
             if checkpoint is not None:
+                raise ValueError(
+                    "backend='wavefront' does not support checkpointing "
+                    "(the render keeps no host-visible sample boundary to "
+                    "save at); use backend='cuda', 'beam' or the tile "
+                    "backends for resumable renders")
+            from .ops.wavefront import render_wavefront
+            return Film(camera.res, data=render_wavefront(
+                camera, scene, samples, depth, bvh=bvh, seed=seed))
+
+        width, height = camera.res
+        tile_h, spp_b, blocks = _plan(width, height, samples,
+                                      scene.padded_size, backend)
+        intersect, park = _tile_intersect(backend, scene, bvh)
+        table = trace_ops.shade_table(scene)
+        sched = _sample_schedule(samples, spp_b, blocks)
+        meta = {"width": width, "height": height, "samples": samples,
+                "depth": depth, "seed": seed, "backend": backend,
+                "tile_h": tile_h, "spp_b": spp_b, **_scene_keys(scene)}
+        film = torch.zeros((height, width, 3), dtype=torch.float32,
+                           device=scene.device)
+        film, samples_done = _resume(checkpoint, meta, film, verbose)
+
+        for ei, (s0, this_spp, nb) in enumerate(sched):
+            if s0 < samples_done:
+                continue
+            for h0 in range(0, height, tile_h):
+                th = min(tile_h, height - h0)
+                film[h0:h0 + th] += _tile_sum(camera, scene, table, h0, th,
+                                              s0, this_spp, nb, depth, seed,
+                                              intersect, park)
+            samples_done = s0 + this_spp * nb
+            if verbose:
+                print(f"\rRendered: {samples_done}/{samples} spp.", end="",
+                      flush=True)
+            if checkpoint is not None and (
+                    ei % checkpoint_every == checkpoint_every - 1
+                    or samples_done >= samples):
                 ckpt.save_render_checkpoint(checkpoint, film, samples_done,
                                             meta)
-            raise KeyboardInterrupt(
-                f"aborted after {ei + 1} schedule entries (test hook)")
-    if verbose:
-        print()
-    return Film((width, height), data=film / samples)
+            if _abort_after is not None and ei + 1 >= _abort_after:
+                if checkpoint is not None:
+                    ckpt.save_render_checkpoint(checkpoint, film, samples_done,
+                                                meta)
+                raise KeyboardInterrupt(
+                    f"aborted after {ei + 1} schedule entries (test hook)")
+        if verbose:
+            print()
+        return Film((width, height), data=film / samples)
 
 
 def _render_windows_checkpointed(backend: str, camera: Camera,

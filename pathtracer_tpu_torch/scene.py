@@ -20,6 +20,7 @@ import torch
 from . import materials as mat
 from .camera import Camera, make_camera
 from .linalg import DEG2RAD
+from .utils.profiling import trace_annotation
 
 _TENSOR_FIELDS = ("v1", "v2", "v3", "mat_type", "albedo", "emit",
                   "roughness")
@@ -121,8 +122,9 @@ class Scene:
         live = self._versions(cache)
         if (arrays is None or None in live
                 or getattr(self, cache + "_versions", None) != live):
-            arrays = tuple(getattr(self, f).detach().to("cpu", copy=True)
-                           .numpy() for f in _CACHES[cache])
+            with trace_annotation("pt.scene.host_copy"):
+                arrays = tuple(getattr(self, f).detach().to("cpu", copy=True)
+                               .numpy() for f in _CACHES[cache])
             self._set_cache(cache, arrays)
         return arrays
 
@@ -150,13 +152,17 @@ class Scene:
     def fingerprint(self) -> Tuple[int, str]:
         """Content key over the RAW BYTES of every geometry and material
         array: a float sum would let a sum-preserving edit pass for the
-        same scene (a stale accel, a resumed run on another scene)."""
-        h = hashlib.sha1()
-        for arr in (*self.host_verts(), *self.host_materials()):
-            a = np.ascontiguousarray(arr)
-            h.update(str(a.shape).encode())
-            h.update(a.tobytes())
-        return (self.num_tris, h.hexdigest())
+        same scene (a stale accel, a resumed run on another scene).  The
+        span ``pt.scene.hash`` covers the hashing of the host bytes alone;
+        a refresh of the host arrays is ``pt.scene.host_copy``."""
+        arrays = (*self.host_verts(), *self.host_materials())
+        with trace_annotation("pt.scene.hash"):
+            h = hashlib.sha1()
+            for arr in arrays:
+                a = np.ascontiguousarray(arr)
+                h.update(str(a.shape).encode())
+                h.update(a.tobytes())
+            return (self.num_tris, h.hexdigest())
 
     def replace_materials(self, albedo=None, emit=None,
                           roughness=None) -> "Scene":

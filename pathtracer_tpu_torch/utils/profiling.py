@@ -1,48 +1,31 @@
-"""Throughput metering and profiler hooks, the PyTorch counterpart of
+"""Profiler hooks, the PyTorch counterpart of
 ``pathtracer_tpu/utils/profiling.py``.
 
-  * RaysPerSecond — ray-segment throughput over timed sections (the caller
-    ends each section's device work, e.g. with ``torch.cuda.synchronize``,
-    before it closes).
-  * trace_annotation / profile_to — thin wrappers over ``torch.profiler``:
-    a named range on the timeline, and a capture written as a Chrome trace
-    (``chrome://tracing``, Perfetto).
+  * trace_annotation — the program's one span helper: a named range on the
+    ``torch.profiler`` timeline while a profiler runs, one shared no-op
+    otherwise.  The program's spans are named ``pt.*`` (README.md lists
+    them); the count of a span in a trace counts the work it covers.
+  * profile_to — a capture of host and device activity written as a
+    Chrome trace (``chrome://tracing``, Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Optional
 
 import torch
 
-
-class RaysPerSecond:
-    """Accumulates (rays, seconds) across timed sections."""
-
-    def __init__(self):
-        self.rays = 0
-        self.seconds = 0.0
-
-    @contextlib.contextmanager
-    def measure(self, n_rays: int):
-        t0 = time.perf_counter()
-        yield
-        self.seconds += time.perf_counter() - t0
-        self.rays += n_rays
-
-    @property
-    def value(self) -> float:
-        return self.rays / self.seconds if self.seconds > 0 else 0.0
-
-    def __repr__(self):
-        return f"{self.value:.3e} rays/s ({self.rays} rays in {self.seconds:.2f}s)"
+_NO_SPAN = contextlib.nullcontext()
 
 
 def trace_annotation(name: str):
-    """Named region for profiler timelines."""
+    """Named region for profiler timelines: ``record_function(name)`` while
+    a profiler runs, else the shared no-op, so a span costs one check when
+    nothing records it."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 

@@ -17,6 +17,7 @@ film bar of the CPU parity tests, atol 2e-4 on all but 1% of the pixels
 import ctypes
 import dataclasses
 import functools
+import json
 import math
 import os
 import sys
@@ -28,6 +29,7 @@ import pathtracer_tpu_torch as tpt
 from pathtracer_tpu_torch.ops.cuda import beam_kernel as tbk
 from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+from pathtracer_tpu_torch.utils import profiling
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -416,6 +418,59 @@ def test_large_scene_wrappers_do_not_synchronise(cuda_device):
     pending = not torch.cuda.current_stream().query()
     torch.cuda.synchronize()
     assert pending and seconds < 0.25
+
+
+def _chrome_events(tmp_path, fn):
+    """The Chrome trace events of ``fn()`` under ``profiling.profile_to``,
+    the device work ended inside the capture."""
+    with profiling.profile_to(str(tmp_path)):
+        fn()
+        torch.cuda.synchronize()
+    with open(tmp_path / "trace.json") as f:
+        return json.load(f)["traceEvents"]
+
+
+def _launches_inside(events, span_name, kernel_part):
+    """Whether the host launch of every kernel whose name holds
+    ``kernel_part`` (found by its correlation id) lies inside the one
+    ``span_name`` span."""
+    (span,) = [e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == span_name]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel_part in e.get("name", "")]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    inside = [span["ts"] <= launch["ts"]
+              and launch["ts"] + launch["dur"] <= span["ts"] + span["dur"]
+              for launch in (launches[k["args"]["correlation"]]
+                             for k in kernels)]
+    return bool(inside) and all(inside)
+
+
+@pytest.mark.cuda
+def test_auto_beam_render_spans(cuda_device, tmp_path):
+    """``"auto"`` on a large mesh keys the beam accel twice (the backend's
+    choice and the launch wrapper each hash the scene) and launches every
+    beam kernel inside ``pt.beam.launches``."""
+    cam, _ = _lit_sphere(cuda_device, (32, 32))
+    scene = tpt.meshes.mesh_garden(grid=1)[1].build(device=cuda_device)
+    assert scene.padded_size > 512
+    tpt.render_film(cam, scene, 4, 3)
+    events = _chrome_events(tmp_path, lambda: tpt.render_film(cam, scene,
+                                                              4, 3))
+    hashes = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == "pt.scene.hash"]
+    assert len(hashes) == 2
+    assert _launches_inside(events, "pt.beam.launches", "beam_kernel")
+
+
+@pytest.mark.cuda
+def test_cornell_launches_inside_their_span(cuda_device, tmp_path):
+    cam, scene = _on(cuda_device, "cornell", (64, 64))
+    events = _chrome_events(tmp_path, lambda: tpt.render_film(
+        cam, scene, 64, 5))
+    assert _launches_inside(events, "pt.trace.launches", "trace_kernel")
 
 
 TRACE_INSTANCES = {   # (scene, loop): all four trace kernel instances
