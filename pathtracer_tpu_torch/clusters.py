@@ -54,7 +54,9 @@ CACHE_SIZE = 4              # accels kept per cache
 def cached_accel(cache: List, scene: Scene, build: Callable[[Scene], object]):
     """``build(scene)`` moved to the scene's device, from ``cache``, a list
     of ``((fingerprint, device), accel)`` pairs, newest last.  The key is
-    the scene's byte fingerprint (``Scene.fingerprint``).  The least
+    the scene's byte fingerprint (``Scene.fingerprint``), which the scene
+    keeps per content version: a lookup of an unedited scene hashes
+    nothing, and its cost is this list's scan.  The least
     recently used accel goes first: a hit moves to the newest end, so the
     accel just served is never the one evicted.  Spans: ``pt.accel.lookup``
     over the whole call, ``pt.accel.build`` over a miss's build."""

@@ -137,6 +137,12 @@ class Scene:
             if (hasattr(self, cache) and getattr(self, cache + "_versions")
                     == self._versions(cache)):
                 new._set_cache(cache, getattr(self, cache))
+        # The key's memo names its host tuples, so it holds on the new
+        # scene only where both tuples came along.
+        memo = getattr(self, "_fingerprint", None)
+        if (memo is not None and memo[0] is getattr(new, "_host_v", None)
+                and memo[1] is getattr(new, "_host_m", None)):
+            object.__setattr__(new, "_fingerprint", memo)
         return new
 
     def host_verts(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -152,17 +158,31 @@ class Scene:
     def fingerprint(self) -> Tuple[int, str]:
         """Content key over the RAW BYTES of every geometry and material
         array: a float sum would let a sum-preserving edit pass for the
-        same scene (a stale accel, a resumed run on another scene).  The
-        span ``pt.scene.hash`` covers the hashing of the host bytes alone;
-        a refresh of the host arrays is ``pt.scene.host_copy``."""
-        arrays = (*self.host_verts(), *self.host_materials())
+        same scene (a stale accel, a resumed run on another scene).
+
+        Memoised per content version: the key is a pure function of the two
+        host tuples ``_fresh`` returns, and ``_fresh`` returns the same
+        tuple objects until a tensor is edited in place (and new ones on
+        every call for inference tensors).  So a key kept beside the tuples
+        it was hashed from, and reused only while both are those very
+        objects, is the digest a fresh hash would give, byte for byte.  The
+        span ``pt.scene.hash`` covers the hashing of the host bytes alone,
+        that is one memo miss; a refresh of the host arrays is
+        ``pt.scene.host_copy``."""
+        hv, hm = self._fresh("_host_v"), self._fresh("_host_m")
+        memo = getattr(self, "_fingerprint", None)
+        if memo is not None and memo[0] is hv and memo[1] is hm:
+            return memo[2]
+        n = self.num_tris
         with trace_annotation("pt.scene.hash"):
             h = hashlib.sha1()
-            for arr in arrays:
-                a = np.ascontiguousarray(arr)
+            for arr in hv + hm:
+                a = np.ascontiguousarray(arr[:n])
                 h.update(str(a.shape).encode())
                 h.update(a.tobytes())
-            return (self.num_tris, h.hexdigest())
+            key = (n, h.hexdigest())
+        object.__setattr__(self, "_fingerprint", (hv, hm, key))
+        return key
 
     def replace_materials(self, albedo=None, emit=None,
                           roughness=None) -> "Scene":

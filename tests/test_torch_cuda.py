@@ -448,21 +448,47 @@ def _launches_inside(events, span_name, kernel_part):
     return bool(inside) and all(inside)
 
 
+def _spans_named(events, name):
+    return [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == name]
+
+
 @pytest.mark.cuda
 def test_auto_beam_render_spans(cuda_device, tmp_path):
     """``"auto"`` on a large mesh keys the beam accel twice (the backend's
-    choice and the launch wrapper each hash the scene) and launches every
-    beam kernel inside ``pt.beam.launches``."""
+    choice and the launch wrapper), from the scene's memoised key, so a
+    repeated render hashes nothing, and launches every beam kernel inside
+    ``pt.beam.launches``."""
     cam, _ = _lit_sphere(cuda_device, (32, 32))
     scene = tpt.meshes.mesh_garden(grid=1)[1].build(device=cuda_device)
     assert scene.padded_size > 512
     tpt.render_film(cam, scene, 4, 3)
     events = _chrome_events(tmp_path, lambda: tpt.render_film(cam, scene,
                                                               4, 3))
-    hashes = [e for e in events if e.get("cat") == "user_annotation"
-              and e.get("name") == "pt.scene.hash"]
-    assert len(hashes) == 2
+    assert len(_spans_named(events, "pt.accel.lookup")) == 2
+    assert _spans_named(events, "pt.scene.hash") == []
     assert _launches_inside(events, "pt.beam.launches", "beam_kernel")
+
+
+@pytest.mark.cuda
+def test_auto_beam_second_render_hashes_nothing(cuda_device, tmp_path):
+    """Two ``"auto"`` renders of one unedited mesh on the beam route: the
+    first hashes the scene once for both lookups, the second not at all,
+    and the films are equal bit for bit."""
+    cam, _ = _lit_sphere(cuda_device, (32, 32))
+    scene = tpt.meshes.mesh_garden(grid=1)[1].build(device=cuda_device)
+    assert scene.padded_size > 512
+    films = []
+
+    def render():
+        films.append(tpt.render_film(cam, scene, 4, 3, seed=7,
+                                     backend="auto").data)
+    first = _chrome_events(tmp_path / "first", render)
+    second = _chrome_events(tmp_path / "second", render)
+    assert len(_spans_named(first, "pt.scene.hash")) == 1
+    assert _spans_named(second, "pt.scene.hash") == []
+    assert _spans_named(second, "pt.beam.launches")
+    assert torch.equal(films[0], films[1])
 
 
 @pytest.mark.cuda

@@ -1,7 +1,10 @@
 """pathtracer_tpu_torch scene, camera, film and checkpoint layers against
 pathtracer_tpu."""
 
+import hashlib
 import math
+import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -134,6 +137,93 @@ def test_inference_mode_scene_reads_its_tensors():
         assert scene.fingerprint() != ref.fingerprint()
         np.testing.assert_array_equal(scene.host_verts()[1],
                                       as_np(scene.v2)[:scene.num_tris])
+
+
+def _independent_key(scene):
+    """The fingerprint written out from the scene's own tensors: SHA-1 over
+    each unpadded array's shape string and bytes, vertices then materials."""
+    n = scene.num_tris
+    h = hashlib.sha1()
+    for f in SCENE_FIELDS:
+        a = np.ascontiguousarray(as_np(getattr(scene, f))[:n])
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return (n, h.hexdigest())
+
+
+@pytest.fixture
+def scene_hashes(monkeypatch):
+    """The count of SHA-1 objects ``pathtracer_tpu_torch.scene`` makes."""
+    calls = []
+
+    def sha1(*args):
+        calls.append(1)
+        return hashlib.sha1(*args)
+    monkeypatch.setattr(sys.modules["pathtracer_tpu_torch.scene"],
+                        "hashlib", types.SimpleNamespace(sha1=sha1))
+    return calls
+
+
+def test_fingerprint_is_hashed_once_per_content_version(scene_hashes):
+    _, scene = tpt.cornell_box(res=(8, 8), device="cpu")
+    key = scene.fingerprint()
+    assert len(scene_hashes) == 1
+    assert scene.fingerprint() == key and scene.fingerprint() == key
+    assert len(scene_hashes) == 1
+    assert key == _independent_key(scene)
+
+
+_EDITS = {"v1": 0.5, "v2": -0.25, "v3": 1.0, "mat_type": 1, "albedo": -0.5,
+          "emit": 0.75, "roughness": 0.25}
+
+
+@pytest.mark.parametrize("field", SCENE_FIELDS)
+def test_in_place_edit_of_each_field_rehashes(scene_hashes, field):
+    _, scene = tpt.corner_scene(res=(8, 8), device="cpu")
+    key = scene.fingerprint()
+    with torch.no_grad():
+        getattr(scene, field)[0] += _EDITS[field]
+    new = scene.fingerprint()
+    assert new != key and new == _independent_key(scene)
+    assert len(scene_hashes) == 2
+    assert scene.fingerprint() == new and len(scene_hashes) == 2
+
+
+def test_to_keeps_the_key_and_replace_materials_rehashes(scene_hashes):
+    _, scene = tpt.cornell_box(res=(8, 8), device="cpu")
+    key = scene.fingerprint()
+    moved = scene.to("cpu")
+    assert moved.fingerprint() == key and len(scene_hashes) == 1
+    # Swapped materials are another content: a new key, hashed once.
+    new = scene.replace_materials(albedo=scene.albedo * 0.5)
+    assert new.fingerprint() != key and len(scene_hashes) == 2
+    assert new.fingerprint() == _independent_key(new)
+    assert len(scene_hashes) == 2
+    # A scene edited after its key was kept moves without that key.
+    with torch.no_grad():
+        scene.emit[0] += 1.0
+    moved = scene.to("cpu")
+    assert moved.fingerprint() == _independent_key(scene) != key
+    assert len(scene_hashes) == 3
+
+
+def test_inference_mode_scene_hashes_every_call(scene_hashes):
+    with torch.inference_mode():
+        _, scene = tpt.corner_scene(res=(8, 8), device="cpu")
+        for i in range(1, 4):
+            assert scene.fingerprint() == _independent_key(scene)
+            assert len(scene_hashes) == i
+
+
+def test_cached_accel_hashes_a_scene_once(scene_hashes):
+    from pathtracer_tpu_torch import clusters as tclusters
+
+    _, scene = tpt.corner_scene(res=(8, 8), device="cpu")
+    cache = []
+    accels = [tclusters.cached_accel(cache, scene, tclusters.build_clusters)
+              for _ in range(3)]
+    assert accels[1] is accels[0] and accels[2] is accels[0]
+    assert len(scene_hashes) == 1 and len(cache) == 1
 
 
 def test_convert_carries_jax_scene_unchanged():
