@@ -122,29 +122,28 @@ def get_rays(cam: Camera, w, h, u1, u2):
     return cam.pos.expand(d.shape), d
 
 
-def _renorm(v):
-    return v / torch.linalg.vector_norm(v)
-
-
 def rotate(cam: Camera, direction: int, angle: float) -> Camera:
-    """FPS-style rotation: yaw about world_up, pitch about right."""
-    a = torch.tensor(angle, dtype=torch.float32, device=cam.device)
-    c, s = torch.cos(a), torch.sin(a)
+    """FPS-style rotation: yaw about world_up, pitch about right.  Only
+    elementwise float32 operations touch the camera (the cosine and sine
+    of the float32 angle are taken on the host, ``linalg.normalize`` sums
+    in a fixed order), so a turn gives the same bits on every device."""
+    a = float(np.float32(angle))
+    c, s = math.cos(a), math.sin(a)
     fwd, up, right = cam.forward, cam.up, cam.right
     if direction == LEFT:
-        fwd = _renorm(fwd * c - right * s)
-        right = _renorm(cross(fwd, cam.world_up))
-        up = _renorm(cross(right, fwd))
+        fwd = normalize(fwd * c - right * s)
+        right = normalize(cross(fwd, cam.world_up))
+        up = normalize(cross(right, fwd))
     elif direction == RIGHT:
-        fwd = _renorm(fwd * c + right * s)
-        right = _renorm(cross(fwd, cam.world_up))
-        up = _renorm(cross(right, fwd))
+        fwd = normalize(fwd * c + right * s)
+        right = normalize(cross(fwd, cam.world_up))
+        up = normalize(cross(right, fwd))
     elif direction == UP:
-        fwd = _renorm(fwd * c + up * s)
-        up = _renorm(cross(right, fwd))
+        fwd = normalize(fwd * c + up * s)
+        up = normalize(cross(right, fwd))
     elif direction == DOWN:
-        fwd = _renorm(fwd * c - up * s)
-        up = _renorm(cross(right, fwd))
+        fwd = normalize(fwd * c - up * s)
+        up = normalize(cross(right, fwd))
     return dataclasses.replace(cam, forward=fwd, up=up, right=right)
 
 
@@ -156,9 +155,9 @@ def move(cam: Camera, direction: int, amount: float) -> Camera:
     elif direction == DOWN:
         pos = pos - cam.world_up * amount
     elif direction == FORWARD:
-        pos = pos + _renorm(cross(cam.world_up, cam.right)) * amount
+        pos = pos + normalize(cross(cam.world_up, cam.right)) * amount
     elif direction == BACKWARD:
-        pos = pos - _renorm(cross(cam.world_up, cam.right)) * amount
+        pos = pos - normalize(cross(cam.world_up, cam.right)) * amount
     elif direction == LEFT:
         pos = pos - cam.right * amount
     elif direction == RIGHT:

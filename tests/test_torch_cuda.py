@@ -492,6 +492,47 @@ def test_auto_beam_second_render_hashes_nothing(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_garden_realtime_session_matches_the_plain_viewer(cuda_device):
+    """The benchmark's realtime garden: 62 frames of the session, the
+    cell's first key before frame 60.  The displayed values of frames 59,
+    60 and 61 at the cell's drawn pixels against the plain viewer
+    (``benchmark/reference/realtime.py``), within the cell's limit."""
+    from benchmark.drivers.render import draw_pixels
+    from benchmark.harness import core
+    from benchmark.reference import compare, scenes
+    from benchmark.reference.realtime import Viewer
+    from pathtracer_tpu_torch.realtime import RealtimeSession
+    from pathtracer_tpu_torch.scene import Scene
+
+    ctx = core.context("garden_realtime", 2**31 + 17, 0.0, False, 0.0)
+    t, chk = ctx.traffic, ctx.workload["check"]
+    res = (t["width"], t["height"])
+    arrays = scenes.make_scene(ctx.config)
+    session = RealtimeSession(
+        tpt.make_camera(**scenes.camera_args(ctx.config, res),
+                        device=cuda_device),
+        Scene.from_arrays(*arrays.as_args(), device=cuda_device),
+        t["depth"], t["frame_samples"], seed=ctx.seed, backend=t["backend"])
+    assert session.backend == "beam"
+    w, h = draw_pixels(ctx.seed, chk["pixels"], *res, "cpu")
+    key = t["keys"][0]
+    shown = {}
+    for g in range(62):
+        if g == 60:
+            session.key(key)
+        frame = session.step()
+        if g >= 59:
+            shown[g] = torch.from_numpy(frame[h.numpy(), w.numpy()])
+    viewer = Viewer(arrays, scenes.make_camera(ctx.config, res), cuda_device,
+                    w.to(cuda_device), h.to(cuda_device), t["depth"],
+                    t["frame_samples"], ctx.seed, chk["launch_spp"])
+    gaps = [compare.film_gap(shown[59], viewer.display((), 59)),
+            compare.film_gap(shown[60], viewer.display((key,), 0)),
+            compare.film_gap(shown[61], viewer.display((key,), 1))]
+    assert max(gaps) <= ctx.workload["limits"]["film_gap"], gaps
+
+
+@pytest.mark.cuda
 def test_cornell_launches_inside_their_span(cuda_device, tmp_path):
     cam, scene = _on(cuda_device, "cornell", (64, 64))
     events = _chrome_events(tmp_path, lambda: tpt.render_film(
