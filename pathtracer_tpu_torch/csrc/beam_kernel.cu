@@ -32,13 +32,25 @@
 //
 // What bounds it on this card: fp32 issue in the box and triangle tests and
 // divergence between the rays of a warp, which pay for the union of their
-// traversals.  Design: one thread per pixel; the tree's nodes (64 B each,
-// at most 64.4 KB), each thread's stack slice (8 B an entry, the tree's
-// depth in entries) and the superclusters' firsts and counts in shared
-// memory; cluster boxes and 64-byte triangle rows read from global memory
-// through L1/L2 with 16-byte loads.  The walk opens one to two dozen nodes
-// where a loop over every supercluster box tested 117 (sphere9812) to 608
-// (garden105708) boxes a segment.
+// traversals.  Design: a thread traces one pixel's samples of one sample
+// run; the tree's nodes (64 B each, at most 64.4 KB), each thread's stack
+// slice (8 B an entry, the tree's depth in entries) and the superclusters'
+// firsts and counts in shared memory; cluster boxes and 64-byte triangle
+// rows read from global memory through L1/L2 with 16-byte loads.  The walk
+// opens one to two dozen nodes where a loop over every supercluster box
+// tested 117 (sphere9812) to 608 (garden105708) boxes a segment.
+//
+// Schedule: a block is kThreads adjacent device-order pixels (a warp 32 of
+// them, all in one tile, so its lanes share the tile's bounce stream) under
+// one run of consecutive samples.  The wrapper's launch plan
+// (ops/cuda/beam_kernel.py::launch_plan) cuts a launch's samples into
+// `groups` runs, as few as still give the card several waves of resident
+// blocks: the blocks' work differs by 2x and more across a film (walls and
+// sky against the meshes), and a launch of one block a pixel block, which
+// a 256 x 256 frame is, lasts as long as its slowest block.  Each sample's
+// radiance goes to `scratch` (spp, 3, n_pix), and beam_kernel_sum adds the
+// samples to the film in sample order, so the film keeps the bits of one
+// thread summing its pixel's samples in turn.
 //
 // Rounding: shading in the plain version's order, --fmad=false, rsqrtf for
 // the camera ray, the normal and the specular direction as torch.rsqrt.
@@ -53,10 +65,12 @@ namespace {
 
 constexpr int kThreads = 256;       // 2048 % kThreads == 0: a block never
                                     // straddles a tile
-// No register cap: with the block size alone ptxas budgets 64 registers a
-// thread and spilled 28-124 bytes a thread; at one block an SM it takes
-// the 80-84 the kernel needs and spills nothing.
-constexpr int kMinBlocks = 1;
+// Three blocks an SM, as many as the garden's 68 KB of shared memory a
+// block allows: ptxas then fits 80 registers a thread without spilling.
+// Left free it takes 82-88 and the card holds two blocks an SM, a third
+// fewer warps to hide the walk's loads.  With the block size alone it
+// budgets 64 and spills 28-124 bytes a thread.
+constexpr int kMinBlocks = 3;
 constexpr int kTileLog2 = 11;       // 2048-pixel tiles
 constexpr int kSquareLog2 = 12;     // 64 x 64 squares
 constexpr uint32_t kTileMix = 0x9E377u;
@@ -76,11 +90,11 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
             const int* __restrict__ sc_first, const int* __restrict__ sc_ncl,
             const float* __restrict__ mats,
             const float* __restrict__ cl_bounds,
-            const float* __restrict__ tri_cols, float* __restrict__ film,
-            int* __restrict__ counts, int n_sc, int tree_depth, int ctris,
-            int n_pix, int res_y, int nsq_x, int tile0, uint32_t s0, int spp,
-            int depth, uint32_t seed_mix, int n_mats, int n_cl_rows,
-            int n_tri_rows) {
+            const float* __restrict__ tri_cols,
+            float* __restrict__ scratch, int* __restrict__ counts, int n_sc,
+            int tree_depth, int ctris, int n_pix, int res_y, int nsq_x,
+            int tile0, uint32_t s0, int spp, int groups, int depth,
+            uint32_t seed_mix, int n_mats, int n_cl_rows, int n_tri_rows) {
   // Shared memory: the tree's nodes, each thread's stack slice (entry k of
   // thread x at k * kThreads + x), the superclusters' first clusters and
   // cluster counts.
@@ -101,8 +115,17 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
   __syncthreads();
   float2* stack = s_stack + threadIdx.x;
 
-  const int local = blockIdx.x * blockDim.x + threadIdx.x;
-  if (local >= n_pix) return;  // never: the launch covers whole tiles
+  // Block b: pixel block b % pixel_blocks, sample run b / pixel_blocks of
+  // the `groups` runs that cut [0, spp) into lengths differing by <= 1.
+  const int pixel_blocks = n_pix / kThreads;
+  const int group = static_cast<int>(blockIdx.x) / pixel_blocks;
+  const int local =
+      (static_cast<int>(blockIdx.x) - group * pixel_blocks) * kThreads +
+      static_cast<int>(threadIdx.x);
+  const int s_lo = static_cast<int>(static_cast<long long>(group) * spp /
+                                    groups);
+  const int s_hi = static_cast<int>(static_cast<long long>(group + 1) * spp /
+                                    groups);
   const uint32_t pix = (static_cast<uint32_t>(tile0) << kTileLog2) +
                        static_cast<uint32_t>(local);
   const uint32_t tile = pix >> kTileLog2;
@@ -130,9 +153,9 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
 
   const float4* clb4 = reinterpret_cast<const float4*>(cl_bounds);
   const float4* row4 = reinterpret_cast<const float4*>(tri_cols);
+  const long long n3 = 3LL * n_pix;
   int tests = 0;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int s = 0; s < spp; ++s) {
+  for (int s = s_lo; s < s_hi; ++s) {
     const uint32_t sidx = s0 + static_cast<uint32_t>(s);
     uint32_t seed = ptk::hash_u32(pix_seed ^ (sidx * ptk::kGolden));
     seed = ptk::hash_u32(seed ^ seed_mix);
@@ -290,39 +313,46 @@ beam_kernel(const float* __restrict__ cam, const float* __restrict__ sc_tree,
       dy = ndy;
       dz = ndz;
     }
-    acc_r = acc_r + rad_r;
-    acc_g = acc_g + rad_g;
-    acc_b = acc_b + rad_b;
+    const long long at = s * n3 + local;
+    scratch[PTK_IX(scratch, at, spp * n3)] = rad_r;
+    scratch[PTK_IX(scratch, at + n_pix, spp * n3)] = rad_g;
+    scratch[PTK_IX(scratch, at + 2 * n_pix, spp * n3)] = rad_b;
   }
-  const int fr = PTK_IX(film, local, 3 * n_pix);
-  const int fg = PTK_IX(film, n_pix + local, 3 * n_pix);
-  const int fb = PTK_IX(film, 2 * n_pix + local, 3 * n_pix);
-  film[fr] = film[fr] + acc_r;
-  film[fg] = film[fg] + acc_g;
-  film[fb] = film[fb] + acc_b;
-  if (counts != nullptr) {
-    const int k = PTK_IX(counts, local, n_pix);
-    counts[k] = counts[k] + tests;
-  }
+  // Other runs of this pixel add theirs; integers sum in any order.
+  if (counts != nullptr)
+    atomicAdd(&counts[PTK_IX(counts, local, n_pix)], tests);
 }
 
-template <bool kHasSpecular, bool kInline>
-cudaError_t launch(int blocks, size_t smem, cudaStream_t st, const float* cam,
-                   const float* sc_tree, const int* sc_first,
-                   const int* sc_ncl, const float* mats,
-                   const float* cl_bounds, const float* tri_cols, float* film,
-                   int* counts, int n_sc, int tree_depth, int ctris,
-                   int n_pix, int res_y, int nsq_x, int tile0, uint32_t s0,
-                   int spp, int depth, uint32_t seed_mix, int n_mats,
-                   int n_cl_rows, int n_tri_rows, int device) {
-  auto kernel = beam_kernel<kHasSpecular, kInline>;
-  cudaError_t err = ptk::prepare_smem(kernel, smem, device);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, st>>>(
-      cam, sc_tree, sc_first, sc_ncl, mats, cl_bounds, tri_cols, film,
-      counts, n_sc, tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp,
-      depth, seed_mix, n_mats, n_cl_rows, n_tri_rows);
-  return cudaGetLastError();
+// film[i] += ((scratch[0][i] + scratch[1][i]) + ...) + scratch[spp - 1][i]
+// over the (3 * n_pix) film: each pixel's samples in sample order, as one
+// thread summing them in turn would.
+__global__ void __launch_bounds__(kThreads)
+beam_kernel_sum(const float* __restrict__ scratch, float* __restrict__ film,
+                int n3, int spp) {
+  const int i = static_cast<int>(blockIdx.x) * kThreads +
+                static_cast<int>(threadIdx.x);
+  if (i >= n3) return;
+  const long long stride = n3;
+  float acc = 0.0f;
+  for (int s = 0; s < spp; ++s)
+    acc = acc + scratch[PTK_IX(scratch, s * stride + i, spp * stride)];
+  film[PTK_IX(film, i, n3)] = film[PTK_IX(film, i, n3)] + acc;
+}
+
+// The instance for the scene's materials.
+decltype(&beam_kernel<false, false>) instance(int has_specular,
+                                              int mats_inline) {
+  if (has_specular)
+    return mats_inline ? beam_kernel<true, true> : beam_kernel<true, false>;
+  return mats_inline ? beam_kernel<false, true> : beam_kernel<false, false>;
+}
+
+// Dynamic shared memory a block: the tree's nodes, the stack slices, the
+// superclusters' firsts and counts.
+size_t smem_bytes(int n_sc, int tree_depth) {
+  return static_cast<size_t>(n_sc - 1) * 4 * sizeof(float4) +
+         static_cast<size_t>(tree_depth) * kThreads * sizeof(float2) +
+         static_cast<size_t>(n_sc) * 2 * sizeof(int);
 }
 
 }  // namespace
@@ -331,24 +361,51 @@ cudaError_t launch(int blocks, size_t smem, cudaStream_t st, const float* cam,
 // capacity): a wrapper refuses a deeper tree.
 extern "C" int pt_tree_stack_size() { return ptk::kTreeStack; }
 
+// The blocks of one instance that the card `device` holds at once (blocks
+// an SM, as cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them for
+// the accel's shared memory, times the SMs), or a negative cudaError.  The
+// wrapper's launch plan cuts a launch's samples by it.
+extern "C" int pt_beam_resident_blocks(int n_sc, int tree_depth,
+                                       int has_specular, int mats_inline,
+                                       int device) {
+  if (n_sc < 1 || tree_depth < 0 || tree_depth > ptk::kTreeStack)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  const auto kernel = instance(has_specular, mats_inline);
+  const size_t smem = smem_bytes(n_sc, tree_depth);
+  if (err == cudaSuccess) err = ptk::prepare_smem(kernel, smem, device);
+  int per_sm = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
+}
+
 // Adds the radiance sums of the samples [s0, s0 + spp) of the `n_tiles`
 // 2048-pixel tiles from `tile0` into `film` (3, n_tiles * 2048), channel
 // planes in device order, and, when `counts` (n_tiles * 2048,) is not null,
-// each pixel's tested triangle rows into `counts`.  The accel arrays are
-// those of clusters.BeamAccel: `sc_tree` the (n_sc - 1, 16) tree over the
-// superclusters, `tree_depth` its depth (at most kTreeStack; 0 for one
-// supercluster); `mats_inline` selects the inline material columns;
-// `n_mats`, `n_cl_rows` and `n_tri_rows` are the rows of `mats` (8 floats
-// each), `cl_bounds` (8) and `tri_cols` (16), which only the checked build
-// reads (PTK_IX).  Launches on `stream` of `device` and returns
-// cudaGetLastError() as an int: 0 when the launch was accepted.
+// each pixel's tested triangle rows into `counts`.  `scratch` (spp, 3,
+// n_tiles * 2048) takes each sample's radiance; `groups` (1 to spp) is the
+// launch plan's sample runs, the grid n_tiles * 2048 / kThreads * groups
+// blocks.  The accel arrays are those of clusters.BeamAccel: `sc_tree` the
+// (n_sc - 1, 16) tree over the superclusters, `tree_depth` its depth (at
+// most kTreeStack; 0 for one supercluster); `mats_inline` selects the
+// inline material columns; `n_mats`, `n_cl_rows` and `n_tri_rows` are the
+// rows of `mats` (8 floats each), `cl_bounds` (8) and `tri_cols` (16),
+// which only the checked build reads (PTK_IX).  Launches the kernel and
+// beam_kernel_sum on `stream` of `device` and returns cudaGetLastError()
+// as an int: 0 when both launches were accepted.
 extern "C" int pt_beam_render(const float* cam, const float* sc_tree,
                               const int* sc_first, const int* sc_ncl,
                               const float* mats, const float* cl_bounds,
-                              const float* tri_cols, float* film, int* counts,
-                              int n_sc, int tree_depth, int ctris,
-                              int n_tiles, int res_y, int nsq_x, int tile0,
-                              uint32_t s0, int spp, int depth,
+                              const float* tri_cols, float* film,
+                              float* scratch, int* counts, int n_sc,
+                              int tree_depth, int ctris, int n_tiles,
+                              int res_y, int nsq_x, int tile0, uint32_t s0,
+                              int spp, int groups, int depth,
                               uint32_t seed_mix, int has_specular,
                               int mats_inline, int n_mats, int n_cl_rows,
                               int n_tri_rows, int device, void* stream) {
@@ -356,30 +413,28 @@ extern "C" int pt_beam_render(const float* cam, const float* sc_tree,
       n_mats < 0 || n_cl_rows < 1 || n_tri_rows < 1 ||
       (n_sc == 1) != (tree_depth == 0) || ctris < 1 || n_tiles < 1 ||
       res_y < 1 || nsq_x < 1 || tile0 < 0 || spp < 0 || depth < 0 ||
-      (static_cast<long long>(tile0) + n_tiles) << kTileLog2 > INT_MAX) {
+      groups < 1 || groups > (spp > 0 ? spp : 1) ||
+      (static_cast<long long>(tile0) + n_tiles) << kTileLog2 > INT_MAX ||
+      (static_cast<long long>(n_tiles) << kTileLog2) / kThreads * groups >
+          INT_MAX ||
+      3 * (static_cast<long long>(n_tiles) << kTileLog2) > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_pix = n_tiles << kTileLog2;
-  const int blocks = n_pix / kThreads;
-  const size_t smem =
-      static_cast<size_t>(n_sc - 1) * 4 * sizeof(float4) +
-      static_cast<size_t>(tree_depth) * kThreads * sizeof(float2) +
-      static_cast<size_t>(n_sc) * 2 * sizeof(int);
+  const auto kernel = instance(has_specular, mats_inline);
+  const size_t smem = smem_bytes(n_sc, tree_depth);
+  err = ptk::prepare_smem(kernel, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PT_BEAM_LAUNCH(SPEC, INL)                                         \
-  launch<SPEC, INL>(blocks, smem, st, cam, sc_tree, sc_first, sc_ncl,     \
-                    mats, cl_bounds, tri_cols, film, counts, n_sc,        \
-                    tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp, \
-                    depth, seed_mix, n_mats, n_cl_rows, n_tri_rows, device)
-  if (has_specular) {
-    err = mats_inline ? PT_BEAM_LAUNCH(true, true)
-                      : PT_BEAM_LAUNCH(true, false);
-  } else {
-    err = mats_inline ? PT_BEAM_LAUNCH(false, true)
-                      : PT_BEAM_LAUNCH(false, false);
-  }
-#undef PT_BEAM_LAUNCH
-  return static_cast<int>(err);
+  kernel<<<n_pix / kThreads * groups, kThreads, smem, st>>>(
+      cam, sc_tree, sc_first, sc_ncl, mats, cl_bounds, tri_cols, scratch,
+      counts, n_sc, tree_depth, ctris, n_pix, res_y, nsq_x, tile0, s0, spp,
+      groups, depth, seed_mix, n_mats, n_cl_rows, n_tri_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  beam_kernel_sum<<<3 * n_pix / kThreads, kThreads, 0, st>>>(scratch, film,
+                                                             3 * n_pix, spp);
+  return static_cast<int>(cudaGetLastError());
 }

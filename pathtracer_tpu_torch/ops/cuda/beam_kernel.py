@@ -14,15 +14,20 @@ wrapper de-interleaves and crops to (H, W, 3).
 
 What bounds it on this card: fp32 issue in the box and triangle tests, and
 divergence between the rays of a warp, which pay for the union of their
-traversals.  Design: one thread per pixel with an exact per-ray traversal
-of the two-level ``BeamAccel``: a walk of its box tree over the
-superclusters (``sc_tree``, in shared memory, near child first), the
-cluster boxes of each supercluster entered, the 8 rows of each cluster
-entered.  Ties go to the lower packed row and a box opens on
-``tmin <= best_t``, so the film is that of any exact nearest-hit
-traversal whatever its visit order: the plain version,
-``render_tiles_beam_reference``, tests every packed row densely.  The
-wrapper raises ``ValueError`` on a tree deeper than the kernel's stack.
+traversals.  Design: an exact per-ray traversal of the two-level
+``BeamAccel``: a walk of its box tree over the superclusters (``sc_tree``,
+in shared memory, near child first), the cluster boxes of each
+supercluster entered, the 8 rows of each cluster entered.  Ties go to the
+lower packed row and a box opens on ``tmin <= best_t``, so the film is that
+of any exact nearest-hit traversal whatever its visit order: the plain
+version, ``render_tiles_beam_reference``, tests every packed row densely.
+The wrapper raises ``ValueError`` on a tree deeper than the kernel's stack.
+
+Schedule (``launch_plan``): a block traces 256 adjacent device-order pixels
+under one run of consecutive samples, the runs as long as still leave the
+card ``LAUNCH_WAVES`` waves of resident blocks, so no launch waits long on
+its slowest block; each sample's radiance goes to a scratch buffer and a
+second kernel adds the samples to the film in sample order.
 
 On a CUDA scene ``render_tiles_beam`` launches the kernel or raises; it
 takes the plain version only when the scene lies on the CPU.
@@ -31,6 +36,7 @@ takes the plain version only when the scene lies on the CPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -56,15 +62,76 @@ _SQ = 64              # Morton square side
 _SQ_PIX = _SQ * _SQ
 _TILE_MIX = 0x9E377
 SEGMENTS_PER_CALL = 1 << 25   # default launch size in ray segments
+BLOCK_PX = 256        # pixels a block (csrc/beam_kernel.cu kThreads)
+LAUNCH_WAVES = 8      # waves of resident blocks a launch is cut into, at least
 
-LAUNCHES = 0          # kernel launches since the last reset
+LAUNCHES = 0          # sample windows launched since the last reset
+BLOCKS = 0            # the kernel's blocks launched since the last reset
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-             + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_uint32]
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_uint32] + [ctypes.c_int] * 3 + [ctypes.c_uint32]
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 _ACCEL_CACHE = []     # [((fingerprint, device), accel)], newest last
 _RASTER_CACHE = {}    # (wp, hp, device) -> raster index tensor
+_RESIDENT = {}        # (device, n_sc, tree depth, instance) -> blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """The kernel's grid for one launch of ``spp`` samples over ``n_pix``
+    device-order pixels: block b traces the BLOCK_PX pixels from
+    ``(b % pixel_blocks) * BLOCK_PX`` over the samples ``samples(b //
+    pixel_blocks)``, the ``groups`` runs that cut [0, spp) into lengths
+    differing by at most one."""
+    n_pix: int
+    spp: int
+    groups: int
+
+    @property
+    def pixel_blocks(self) -> int:
+        return self.n_pix // BLOCK_PX
+
+    @property
+    def blocks(self) -> int:
+        return self.pixel_blocks * self.groups
+
+    def samples(self, group: int) -> Tuple[int, int]:
+        """The launch-relative samples [lo, hi) of run ``group``."""
+        return (group * self.spp // self.groups,
+                (group + 1) * self.spp // self.groups)
+
+
+def launch_plan(n_pix: int, spp: int, resident: int) -> LaunchPlan:
+    """The plan of a launch on a card that holds ``resident`` of the
+    kernel's blocks at once: sample runs as long as still give
+    LAUNCH_WAVES * resident blocks, or one sample a block where the launch
+    has fewer (pixel, sample) blocks than that.  A block's work varies
+    more than 2x across a film, and the launch lasts until its slowest
+    block ends: with many waves the card refills its SMs as blocks end."""
+    pixel_blocks = n_pix // BLOCK_PX
+    run = max(1, spp * pixel_blocks // (LAUNCH_WAVES * resident))
+    return LaunchPlan(n_pix, spp, -(-spp // run))
+
+
+def _resident_blocks(lib, accel: BeamAccel, has_specular: bool,
+                     index: int) -> int:
+    """The kernel instance's blocks that card ``index`` holds at once, for
+    the accel's shared memory (the occupancy the card reports)."""
+    key = (index, accel.num_superclusters, accel.sc_tree_depth,
+           bool(has_specular), bool(accel.mats_inline))
+    if key not in _RESIDENT:
+        fn = lib.pt_beam_resident_blocks
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
+        got = fn(accel.num_superclusters, accel.sc_tree_depth,
+                 int(has_specular), int(accel.mats_inline), index)
+        if got < 1:
+            raise RuntimeError(f"the card holds no beam kernel block: "
+                               f"{build.error_string(lib, -got)} "
+                               f"(cudaError {-got})")
+        _RESIDENT[key] = got
+    return _RESIDENT[key]
 
 
 def _accel_for(scene: Scene) -> BeamAccel:
@@ -329,7 +396,7 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     ``counts``: an optional (n_tiles * 2048,) int32 CUDA tensor to which
     each pixel adds the triangle rows it tested.  Launches go on the current
     stream and are not synchronised."""
-    global LAUNCHES
+    global LAUNCHES, BLOCKS
     _check(camera, scene, sample0, samples, depth)
     tile0, n_tiles = _band(camera, tile0, n_tiles)
     dev = scene.device
@@ -372,6 +439,8 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
             raise ValueError(f"{name}: need contiguous {dtype} on {dev}, got "
                              f"{x.dtype} on {x.device}")
     film = torch.zeros((3, n_pix), dtype=torch.float32, device=dev)
+    scratch = torch.empty((min(spp_per_call, samples), 3, n_pix),
+                          dtype=torch.float32, device=dev)
 
     lib = build.load_library()
     build.check_tree_depth(lib, accel.sc_tree_depth, "beam accel")
@@ -379,6 +448,7 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     index = dev.index if dev.index is not None else torch.cuda.current_device()
+    resident = _resident_blocks(lib, accel, scene.has_specular, index)
     stream = torch.cuda.current_stream(dev).cuda_stream
     wp, _ = _padded_res(*camera.res)
     seed_mix = (int(seed) * prng.SEED_MIX) & prng.MASK
@@ -386,15 +456,18 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
     with trace_annotation("pt.beam.launches"):
         while s < samples:
             spp = min(spp_per_call, samples - s)
+            plan = launch_plan(n_pix, spp, resident)
             err = fn(cam.data_ptr(), accel.sc_tree.data_ptr(),
                      accel.sc_first.data_ptr(), accel.sc_ncl.data_ptr(),
                      accel.mats.data_ptr(), accel.cl_bounds.data_ptr(),
                      accel.tri_cols.data_ptr(), film.data_ptr(),
+                     scratch.data_ptr(),
                      None if counts is None else counts.data_ptr(),
                      accel.num_superclusters, accel.sc_tree_depth,
                      accel.ctris, n_tiles, camera.height, wp // _SQ, tile0,
-                     (sample0 + s) & prng.MASK, spp, depth, seed_mix,
-                     int(scene.has_specular), int(accel.mats_inline),
+                     (sample0 + s) & prng.MASK, spp, plan.groups, depth,
+                     seed_mix, int(scene.has_specular),
+                     int(accel.mats_inline),
                      accel.mats.shape[0], accel.cl_bounds.shape[0],
                      accel.tri_cols.shape[0], index, stream)
             if err != 0:
@@ -402,6 +475,7 @@ def render_tiles_beam(camera: Camera, scene: Scene, sample0: int,
                                    f"{build.error_string(lib, err)} "
                                    f"(cudaError {err})")
             LAUNCHES += 1
+            BLOCKS += plan.blocks
             s += spp
     return film
 

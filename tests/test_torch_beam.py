@@ -162,6 +162,62 @@ def test_pixels_follow_the_device_order():
     assert int(tile[-1]) == wp * hp // tbk.TILE_PX - 1
 
 
+def _launches(res, samples, depth=5, tile0=0, n_tiles=None):
+    """[(n_pix, spp)] of the kernel launches of a render of ``samples`` at
+    ``res`` (a band of tiles when ``n_tiles`` is given)."""
+    cam = tpt.make_camera((0, 0, -10), (0, 0, 1), (0, 1, 0), res, 1.0,
+                          device="cpu")
+    _, n_tiles = tbk._band(cam, tile0, n_tiles)
+    per_call = tbk._default_spp_per_call(cam, samples, depth)
+    return [(n_tiles * tbk.TILE_PX, min(per_call, samples - s))
+            for s in range(0, samples, per_call)]
+
+
+# The launches of the benchmark's large-mesh cells: a realtime frame (256²,
+# 15 spp), the offline job (512², 64 spp: launches of 25, 25 and 14), a
+# row band of the offline film, and a film of fewer blocks than SMs.
+PLAN_LAUNCHES = {
+    "realtime_256_15": _launches((256, 256), 15),
+    "offline_512_64": _launches((512, 512), 64),
+    "band_512_64": _launches((512, 512), 64, tile0=40, n_tiles=48),
+    "small_64_16": _launches((64, 64), 16),
+}
+
+
+@pytest.mark.parametrize("resident", [132, 264, 396])
+@pytest.mark.parametrize("shape", sorted(PLAN_LAUNCHES))
+def test_launch_plan_covers_each_pixel_sample_once(shape, resident):
+    """Every (pixel block, sample) of a launch lies in exactly one block;
+    the runs differ by at most one sample; the launch has LAUNCH_WAVES
+    waves of ``resident`` blocks, or one sample a block."""
+    assert {spp for _, spp in PLAN_LAUNCHES["offline_512_64"]} == {25, 14}
+    for n_pix, spp in PLAN_LAUNCHES[shape]:
+        plan = tbk.launch_plan(n_pix, spp, resident)
+        assert n_pix % tbk.BLOCK_PX == 0 and 1 <= plan.groups <= spp
+        runs = [plan.samples(g) for g in range(plan.groups)]
+        seen = np.zeros((spp, plan.pixel_blocks), np.int64)
+        for b in range(plan.blocks):
+            lo, hi = runs[b // plan.pixel_blocks]
+            seen[lo:hi, b % plan.pixel_blocks] += 1
+        assert (seen == 1).all()
+        lengths = [hi - lo for lo, hi in runs]
+        assert max(lengths) - min(lengths) <= 1
+        assert plan.blocks >= min(tbk.LAUNCH_WAVES * resident,
+                                  spp * plan.pixel_blocks)
+
+
+def test_launch_plan_fills_the_card_for_a_realtime_frame():
+    """A 256² frame of 15 samples is 256 pixel blocks, fewer than an H100
+    holds at once (3 blocks an SM at most: the garden's 68,288 B of shared
+    memory a block, of the SM's 228 KB; 132 SMs).  The plan gives it at
+    least 4 waves of them."""
+    (n_pix, spp), = PLAN_LAUNCHES["realtime_256_15"]
+    resident = 3 * 132
+    assert n_pix // tbk.BLOCK_PX < resident
+    plan = tbk.launch_plan(n_pix, spp, resident)
+    assert plan.blocks >= 4 * resident and plan.groups == spp
+
+
 def test_rejects_what_the_kernel_cannot_take():
     cam, scene = lit_sphere(tpt, (16, 16), 6, 8)
     with pytest.raises(ValueError, match="CUDA"):

@@ -325,30 +325,88 @@ def test_wrappers_refuse_a_tree_deeper_than_the_stack(cuda_device):
         tck.intersect_clusters(o, o + 1.0, cs)
 
 
+def _garden256(device):
+    """mesh_garden(grid=1) (2,028 triangles) under the garden's camera at
+    the realtime frame's 256 x 256."""
+    scene = tpt.meshes.mesh_garden(grid=1, device=device)[1].build(
+        device=device)
+    cam = tpt.make_camera((250, 330, -420), (0, -0.12, 1), (0, 1, 0),
+                          (256, 256), 62 * tpt.DEG2RAD, 1.0, device=device)
+    return cam, scene
+
+
+# (scene, depth, spp, sample runs): at 64 x 64 the launch has 16 pixel
+# blocks, fewer than the card's SMs.  Runs None: the card's own launch plan
+# (one sample a block at this film); 3: three runs of unequal length where
+# 3 does not divide spp.
+BEAM_CASES = ([(name, depth, spp, runs)
+               for name in ("sphere", "cornell", "specular", "inline70",
+                            "inline70_specular")
+               for depth in (1, 5) for spp in (1, 4, 15, 16)
+               for runs in (None, 3)]
+              + [("garden256", 5, 15, None)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth", [1, 5])
-@pytest.mark.parametrize("name", ["sphere", "cornell", "specular",
-                                  "inline70", "inline70_specular"])
-def test_beam_kernel_matches_reference(cuda_device, name, depth):
+@pytest.mark.parametrize("name,depth,spp,runs", BEAM_CASES)
+def test_beam_kernel_matches_reference(cuda_device, monkeypatch, name, depth,
+                                       spp, runs):
     """All four kernel instances: table or inline materials, each with and
-    without the specular branch."""
-    make = {"sphere": lambda r: _lit_sphere(cuda_device, r),
-            "cornell": lambda r: tpt.cornell_box(res=r, device=cuda_device),
-            "specular": lambda r: tpt.modified_cornell(0.05, res=r,
-                                                       device=cuda_device),
-            "inline70": lambda r: _inline70(cuda_device, r),
-            "inline70_specular": lambda r: _inline70(cuda_device, r, True)}
-    cam, scene = make[name]((64, 64))
+    without the specular branch; sample counts that the launch plan's runs
+    divide and do not; and the realtime frame's shape on a garden.  The
+    film is the plain version's bit for bit however the plan cuts the
+    samples."""
+    make = {"sphere": lambda: _lit_sphere(cuda_device, (64, 64)),
+            "cornell": lambda: tpt.cornell_box(res=(64, 64),
+                                               device=cuda_device),
+            "specular": lambda: tpt.modified_cornell(0.05, res=(64, 64),
+                                                     device=cuda_device),
+            "inline70": lambda: _inline70(cuda_device, (64, 64)),
+            "inline70_specular": lambda: _inline70(cuda_device, (64, 64),
+                                                   True),
+            "garden256": lambda: _garden256(cuda_device)}
+    cam, scene = make[name]()
     accel = tbk._accel_for(scene)
     assert scene.has_specular == name.startswith(("specular", "inline70_s"))
     assert accel.mats_inline == name.startswith("inline70")
+    if runs is not None:
+        monkeypatch.setattr(tbk, "launch_plan", lambda n_pix, k, _: (
+            tbk.LaunchPlan(n_pix, k, min(runs, k))))
     before = tbk.LAUNCHES
-    got = tbk.render_sum_beam(cam, scene, 0, 4, depth)
+    got = tbk.render_sum_beam(cam, scene, 0, spp, depth)
     assert tbk.LAUNCHES == before + 1
-    want = tbk.render_sum_beam_reference(cam, scene, 0, 4, depth)
+    want = tbk.render_sum_beam_reference(cam, scene, 0, spp, depth)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all()) and float(got.sum()) > 0.0
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_beam_counts_sum_over_samples_and_blocks_follow_the_plan(
+        cuda_device):
+    """A pixel's tested rows are summed over the blocks of its sample runs:
+    one 4-spp launch counts what four 1-spp launches count; BLOCKS grows by
+    the launch plan's blocks."""
+    from pathtracer_tpu_torch.utils import build
+    cam, scene = _lit_sphere(cuda_device, (64, 64))
+    n_pix = 2 * tbk.TILE_PX
+    index = cuda_device.index or 0
+    resident = tbk._resident_blocks(build.load_library(),
+                                    tbk._accel_for(scene),
+                                    scene.has_specular, index)
+    plan = tbk.launch_plan(n_pix, 4, resident)
+    assert plan.groups == 4 and resident >= torch.cuda.get_device_properties(
+        index).multi_processor_count
+    once = torch.zeros(n_pix, dtype=torch.int32, device=cuda_device)
+    launches, blocks = tbk.LAUNCHES, tbk.BLOCKS
+    tbk.render_tiles_beam(cam, scene, 0, 4, 5, counts=once)
+    assert tbk.LAUNCHES == launches + 1
+    assert tbk.BLOCKS == blocks + plan.blocks
+    split = torch.zeros_like(once)
+    for s in range(4):
+        tbk.render_tiles_beam(cam, scene, s, 1, 5, counts=split)
+    torch.cuda.synchronize()
+    assert int(once.sum()) > 0 and torch.equal(once, split)
 
 
 @pytest.mark.cuda
