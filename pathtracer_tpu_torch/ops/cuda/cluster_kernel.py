@@ -16,13 +16,7 @@ of every cluster whose box it enters; ties go to the lower packed row and a
 box opens on ``tmin <= best_t``, so the hit is the plain version's whatever
 the visit order.  The kernel keeps the nodes, starts and counts in shared
 memory when two blocks of them fit an SM.  The wrapper raises
-``ValueError`` on a tree deeper than the kernel's stack.  On request
-(``sort_rays=True``) the wrapper
-first sorts the rays by origin Morton cell and direction octant
-(``_sort_keys``), as the TPU driver does, so a block's rays are coherent.
-On the H100 the sort costs more than it saves, in the kernel call and in
-the cluster render, on 9.8k and 105k triangles alike (PERF.md), so it is
-off by default.
+``ValueError`` on a tree deeper than the kernel's stack.
 
 On a CUDA batch ``intersect_clusters`` launches the kernel or raises; it
 takes the plain version, ``intersect_clusters_reference`` (dense
@@ -45,7 +39,6 @@ from ..intersect import (MOMENT_OPS, PLUCKER_OPS, SLAB_OPS, boxes_entered,
                          intersect_packed)
 
 BLOCK_RAYS = 256      # rays per CUDA block; csrc/cluster_kernel.cu kThreads
-_MORTON_BITS = 6      # per axis: 18-bit cell, 3-bit octant sort keys
 
 LAUNCHES = 0          # kernel launches since the last reset
 
@@ -60,27 +53,6 @@ def clusters_for(scene: Scene) -> ClusterSet:
     is most of a cluster render's time on a large mesh, and must not be
     paid per call."""
     return cached_accel(_CLUSTER_CACHE, scene, build_clusters)
-
-
-def _spread3(x: torch.Tensor) -> torch.Tensor:
-    """Interleave the low 6 bits of x with two zero bits each (Morton)."""
-    x = (x | (x << 8)) & 0x0300F
-    x = (x | (x << 4)) & 0x030C3
-    x = (x | (x << 2)) & 0x09249
-    return x
-
-
-def _sort_keys(ray_o, ray_d, lb, rt) -> torch.Tensor:
-    """Coherence keys: origin Morton cell (major) | direction octant."""
-    span = torch.clamp_min(rt - lb, 1e-6)
-    q = torch.clamp(((ray_o - lb) / span) * (1 << _MORTON_BITS), 0.0,
-                    (1 << _MORTON_BITS) - 1).to(torch.int32)
-    morton = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
-              | (_spread3(q[:, 2]) << 2))
-    octant = ((ray_d[:, 0] > 0).to(torch.int32)
-              | ((ray_d[:, 1] > 0).to(torch.int32) << 1)
-              | ((ray_d[:, 2] > 0).to(torch.int32) << 2))
-    return (morton << 3) | octant
 
 
 def _check_rays(ray_o, ray_d, cs: ClusterSet):
@@ -144,15 +116,13 @@ def count_work(ray_o: torch.Tensor, ray_d: torch.Tensor, cs: ClusterSet,
 
 
 def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
-                       cs: ClusterSet, *, sort_rays: bool = False
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       cs: ClusterSet) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest hit of flat rays (R, 3) against the clusters: (t (R,),
     tid (R,) int32), t = FLOAT_INF and tid = -1 on a miss.
 
     ``cs`` lies on the rays' device.  A CUDA batch launches the kernel on
     the current stream without synchronising; a CPU batch takes the plain
-    version.  ``sort_rays`` sorts the rays for coherence and restores their
-    order after the kernel; it changes no hit."""
+    version."""
     global LAUNCHES
     _check_rays(ray_o, ray_d, cs)
     dev = ray_o.device
@@ -164,20 +134,14 @@ def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
     if R == 0:
         return intersect_clusters_reference(ray_o, ray_d, cs)
     Rp = -(-R // BLOCK_RAYS) * BLOCK_RAYS
-    lb, rt = cs.scene_bounds
     if Rp != R:
         # Padding rays start beyond the +x face and point +x: they can
         # enter no cluster box.
-        pad_o = (rt + 1.0).expand(Rp - R, 3)
+        pad_o = (cs.scene_bounds[1] + 1.0).expand(Rp - R, 3)
         pad_d = torch.zeros((Rp - R, 3), dtype=torch.float32, device=dev)
         pad_d[:, 0] = 1.0
         ray_o = torch.cat([ray_o, pad_o])
         ray_d = torch.cat([ray_d, pad_d])
-    perm = None
-    if sort_rays:
-        perm = torch.argsort(_sort_keys(ray_o, ray_d, lb, rt), stable=True)
-        ray_o = ray_o[perm]
-        ray_d = ray_d[perm]
     planes = torch.cat([ray_o.T, ray_d.T]).contiguous()     # (6, Rp)
     tris = cs.tri_data.contiguous()
     tree = cs.tree.contiguous()
@@ -207,7 +171,4 @@ def intersect_clusters(ray_o: torch.Tensor, ray_d: torch.Tensor,
                            f"{build.error_string(lib, err)} (cudaError {err})")
     LAUNCHES += 1
     tid = torch.where(slot >= 0, cs.tid_map[slot.clamp_min(0).long()], -1)
-    if perm is not None:
-        t = torch.empty_like(t).index_copy_(0, perm, t)
-        tid = torch.empty_like(tid).index_copy_(0, perm, tid)
     return t[:R], tid[:R].to(torch.int32)

@@ -45,16 +45,17 @@ every other stage is eager PyTorch.  ``render.render_film(backend=
 "wavefront")`` routes here; its ``"auto"`` backend never picks it.
 
 MEASURED on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-(``chip_smoke.py`` phase 13, two runs; Cornell box, 512^2, 64 spp): the
-megakernel renders in 6.5-7.1 ms at depth 5 and 10.0-10.5 ms at depth
-16; this pipeline on the cluster kernel in 158-172 ms and 467-469 ms
-(24x and 44-47x behind), on the dense intersector in 1.12-1.13 s and
-3.53-3.58 s; explicit compaction adds 8-13%.  On sphere_in_box(50, 100)
-(512^2, 16 spp) it ties render_film's cluster backend (50-52 ms), trails
-the beam kernel (3.3-3.7 ms) 14-16x.  The cluster kernel is 6% of the
-device time: every bounce runs ~150 eager launches over the whole
-queue, dead rays included, and synchronises once, while the
-megakernel's dead lanes cost it little (its segments/s double from
+(one card run when this pipeline was ported, recorded in CHANGES.md
+under the wavefront's bring-up; Cornell box, 512^2, 64 spp): the
+megakernel renders in 6.54 ms at depth 5 and 10.52 ms at depth 16; this
+pipeline on the cluster kernel in 158.42 ms and 467.12 ms (24x and 44x
+behind), on the dense intersector in 1115.88 ms and 3533.51 ms;
+explicit compaction adds 7.7% and 10.0%.  On sphere_in_box(50, 100)
+(512^2, 16 spp) it takes 52.46 ms to render_film's cluster backend's
+50.28 ms and trails the beam kernel (3.26 ms) 16x.  The cluster kernel
+is 6.2-6.8% of the device time: every bounce runs ~150 eager launches
+over the whole queue, dead rays included, and synchronises once, while
+the megakernel's dead lanes cost it little (its segments/s double from
 depth 5 to 16).
 """
 

@@ -1,8 +1,7 @@
-"""Wall-clock timer that waits for the device, and CUDA-event timing."""
+"""Wall-clock timer that waits for the device."""
 
 from __future__ import annotations
 
-import statistics
 import time
 
 import torch
@@ -31,24 +30,3 @@ class Timer:
         self._sync()
         return time.perf_counter() - self._start
 
-
-def device_ms(fn, calls: int, runs: int = 3):
-    """(median, all runs) of the device time in ms per call of ``fn`` on
-    the current CUDA device, after one warm-up call.  Each run is ``calls``
-    back-to-back calls between two CUDA events, so the host's preparation
-    of a call overlaps the device work of the one before, as in a render;
-    a single call would also count the idle device while the host prepares
-    it."""
-    fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times), times

@@ -1,7 +1,8 @@
 """The work counts behind the kernels' bounds, on the CPU.
 
-``chip_smoke.py`` divides these operation counts by the card's fp32 rate
-to give each kernel's least time; here they are held to what they count on
+Divided by the card's fp32 rate, these operation counts gave each kernel's
+least time in the card runs recorded in PERF.md's kernel table; here they
+are held to what they count on
 small scenes: the boxes any exact traversal must open (those entered
 before the nearest hit, and the ones that hold it), the rows of the
 clusters so opened, the live segments.

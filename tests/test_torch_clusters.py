@@ -134,19 +134,6 @@ def test_cluster_set_moves_to_device():
     assert acc.device.type == "cpu"
 
 
-def test_spread3_and_sort_keys_match_jax():
-    x = np.arange(64, dtype=np.int32)
-    np.testing.assert_array_equal(
-        as_np(tck._spread3(torch.from_numpy(x))),
-        np.asarray(jck._spread3(x)))
-    ro, rd = _random_rays(-1.0, 2.0, 300, seed=5)
-    lb, rt = np.zeros(3, np.float32), np.ones(3, np.float32)
-    np.testing.assert_array_equal(
-        as_np(tck._sort_keys(torch.from_numpy(ro), torch.from_numpy(rd),
-                             torch.from_numpy(lb), torch.from_numpy(rt))),
-        np.asarray(jck._sort_keys(ro, rd, lb, rt)))
-
-
 def test_intersect_clusters_matches_jax():
     """The rays of tests/test_clusters.py: the port's plain version and its
     CPU wrapper against the JAX package's brute intersection and its

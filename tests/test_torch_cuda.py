@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels and the port's main paths on the card.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without one.
 This file imports neither JAX nor pathtracer_tpu, so on a machine with a
@@ -11,17 +11,20 @@ with --fmad=false), and the cluster and beam kernels resolve an exact tie
 to the lower packed row as the plain argmin does: each kernel is held to
 bit identity with its plain version; the checks across backends to the
 film bar of the CPU parity tests, atol 2e-4 on all but 1% of the pixels
-(see tests/_torch_parity.py).
+(see tests/_torch_parity.py).  The main paths are held at their own sizes:
+the 1024^2 Cornell render, the 512^2 large-scene renders against the
+committed renders in docs/, the recoveries, two ranks on one card, the
+realtime session and the CLI; the randomized sweep runs every case of
+``tests/_torch_card.py`` on the normal library here and on the
+bounds-checked one in a child process.
 """
 
 import ctypes
 import dataclasses
-import functools
 import json
 import math
-import os
-import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,12 +34,8 @@ from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
 from pathtracer_tpu_torch.utils import profiling
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-import chip_smoke  # noqa: E402
-
-FILM_ATOL = 2e-4
-MAX_FLIP_SHARE = 0.01
+import _torch_card as card
+from _torch_card import FILM_ATOL, MAX_FLIP_SHARE
 
 SCENES = {
     "corner": lambda res, dev: tpt.corner_scene(res=res, device=dev),
@@ -259,8 +258,7 @@ def _tie_scene(device, res=(64, 64)):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_tris", [16, 4])
-@pytest.mark.parametrize("sort_rays", [True, False])
-def test_cluster_kernel_matches_reference(cuda_device, sort_rays, max_tris):
+def test_cluster_kernel_matches_reference(cuda_device, max_tris):
     """t and tid bit for bit (same operation order, --fmad=false; ties go
     to the lower row).  At 16 triangles a cluster the tree sits in shared
     memory; at 4, on the larger sphere, it does not leave room for two
@@ -274,7 +272,7 @@ def test_cluster_kernel_matches_reference(cuda_device, sort_rays, max_tris):
     d = torch.randn((4000, 3), generator=gen)
     d = (d / d.norm(dim=-1, keepdim=True)).to(cuda_device)
     before = tck.LAUNCHES
-    t, tid = tck.intersect_clusters(o, d, cs, sort_rays=sort_rays)
+    t, tid = tck.intersect_clusters(o, d, cs)
     assert tck.LAUNCHES == before + 1
     t_ref, tid_ref = tck.intersect_clusters_reference(o, d, cs)
     torch.cuda.synchronize()
@@ -615,7 +613,7 @@ def test_kernels_write_only_their_outputs(cuda_device, monkeypatch, kernel):
     launch must give the same bits (a shared-memory race would not).  The
     CUDA sanitizer tools do not run on every machine with a card; this
     test does."""
-    guard = chip_smoke.GuardedTorch()
+    guard = card.GuardedTorch()
     if kernel in TRACE_INSTANCES:
         name, loop = TRACE_INSTANCES[kernel]
         cam, scene = _on(cuda_device, name, (64, 48))
@@ -676,34 +674,48 @@ def _loss_and_grad(loss, params):
     return value.detach(), dict(zip(leaves, grads))
 
 
+# Lit spheres: (n_lat, n_lon, film side, spp, depth).  sphere9812 is the
+# large scene at the size the gradient path was first held at on the card.
+SPHERES = {"sphere200": (10, 20, 32, 4, 3),
+           "sphere9812": (50, 100, 64, 8, 4)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("gather", ["onehot", "index_select"])
-def test_diff_cluster_kernel_matches_plain(cuda_device, monkeypatch, gather):
+@pytest.mark.parametrize("sphere,gather", [("sphere200", "onehot"),
+                                           ("sphere200", "index_select"),
+                                           ("sphere9812", "index_select")])
+def test_diff_cluster_kernel_matches_plain(cuda_device, monkeypatch, sphere,
+                                           gather):
     """make_loss through backend="cluster": the kernel's film equals the
     plain intersection's bit for bit, and its gradients agree within
     DIFF_GRAD_RTOL (bit for bit with the one-hot gather); one render
-    launches the kernel once a bounce."""
+    launches the kernel once a bounce.  sphere9812's table is above
+    ONEHOT_GATHER_MAX_ROWS, so index_select is its only gather."""
     from pathtracer_tpu_torch import diff
     from pathtracer_tpu_torch.ops import trace as ttrace
 
+    n_lat, n_lon, side, spp, depth = SPHERES[sphere]
+    cam, scene = _lit_sphere(cuda_device, (side, side), n_lat, n_lon)
+    params = diff.material_params(scene)
+    rows = params["albedo"].shape[0]
+    assert (rows <= ttrace.ONEHOT_GATHER_MAX_ROWS) == (sphere == "sphere200")
     if gather == "index_select":
         monkeypatch.setattr(ttrace, "ONEHOT_GATHER_MAX_ROWS", 0)
-    cam, scene = _lit_sphere(cuda_device, (32, 32))
-    params = diff.material_params(scene)
-    target = torch.full((32, 32, 3), 0.2, device=cuda_device)
-    loss = diff.make_loss(cam, scene, target, 4, 3, backend="cluster")
+    target = torch.full((side, side, 3), 0.2, device=cuda_device)
+    loss = diff.make_loss(cam, scene, target, spp, depth, backend="cluster")
     before = tck.LAUNCHES
-    film = diff.render_film_diff(cam, scene, params, 4, 3, backend="cluster")
+    film = diff.render_film_diff(cam, scene, params, spp, depth,
+                                 backend="cluster")
     value, grads = _loss_and_grad(loss, params)
-    assert tck.LAUNCHES == before + 2 * 3
+    assert tck.LAUNCHES == before + 2 * depth
     with monkeypatch.context() as m:
         m.setattr(tck, "intersect_clusters",
                   lambda o, d, cs: tck.intersect_clusters_reference(o, d, cs))
-        plain_film = diff.render_film_diff(cam, scene, params, 4, 3,
+        plain_film = diff.render_film_diff(cam, scene, params, spp, depth,
                                            backend="cluster")
         plain_value, plain_grads = _loss_and_grad(loss, params)
     torch.cuda.synchronize()
-    assert tck.LAUNCHES == before + 2 * 3
+    assert tck.LAUNCHES == before + 2 * depth
     assert float(film.mean()) > 0.0 and torch.equal(film, plain_film)
     assert torch.equal(value, plain_value)
     for k, g in grads.items():
@@ -755,24 +767,61 @@ def test_recover_materials_runs_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sphere,side,backend", [("sphere200", 32, "cluster"),
+                                                ("sphere9812", 128, "auto")])
 def test_wavefront_cluster_matches_plain_intersector(cuda_device,
-                                                     monkeypatch):
-    """The wavefront's "cluster" film equals the same render with the
-    plain cluster intersector, bit for bit; one kernel launch a live
-    bounce."""
+                                                     monkeypatch, sphere,
+                                                     side, backend):
+    """The wavefront's film through the cluster kernel (``"auto"`` picks it
+    on the large sphere) equals the same render with the plain cluster
+    intersector, bit for bit, and render_film's cluster film within the
+    film bar; one kernel launch a live bounce and no other kernel."""
     from pathtracer_tpu_torch.ops import wavefront as twf
 
-    cam, scene = _lit_sphere(cuda_device, (32, 32))
-    launches, live = tck.LAUNCHES, twf.LIVE_BOUNCES
-    film = twf.render_wavefront(cam, scene, 4, 5, backend="cluster")
+    n_lat, n_lon = SPHERES[sphere][:2]
+    cam, scene = _lit_sphere(cuda_device, (side, side), n_lat, n_lon)
+    before, live = _launches(), twf.LIVE_BOUNCES
+    film = twf.render_wavefront(cam, scene, 4, 5, backend=backend)
     torch.cuda.synchronize()
-    assert tck.LAUNCHES - launches == twf.LIVE_BOUNCES - live > 0
+    assert _since(before) == (0, twf.LIVE_BOUNCES - live, 0)
+    assert twf.LIVE_BOUNCES > live
     with monkeypatch.context() as m:
         m.setattr(tck, "intersect_clusters",
                   lambda o, d, cs: tck.intersect_clusters_reference(o, d, cs))
         plain = twf.render_wavefront(cam, scene, 4, 5, backend="cluster")
+    tile = tpt.render_film(cam, scene, 4, 5, backend="cluster").data
     torch.cuda.synchronize()
     assert float(film.mean()) > 0.0 and torch.equal(film, plain)
+    assert card.film_diff(film, tile)[1] <= MAX_FLIP_SHARE
+
+
+# The wavefront's dense film against render_film's: the same operations
+# in another grouping of the path sum.
+WAVEFRONT_BRUTE_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "specular05"])
+def test_wavefront_brute_matches_render_film(cuda_device, name):
+    """render_film(backend="wavefront") on the Cornell box and
+    modified_cornell(0.05) at 64^2, 4 spp, depth 5: within
+    WAVEFRONT_BRUTE_ATOL of render_film's brute film, within the film bar
+    of the trace kernel's, and equal to a second run bit for bit."""
+    from pathtracer_tpu_torch.ops import wavefront as twf
+
+    if name == "cornell":
+        cam, scene = tpt.cornell_box(res=(64, 64), device=cuda_device)
+    else:
+        cam, scene = tpt.modified_cornell(0.05, res=(64, 64),
+                                          device=cuda_device)
+    film = tpt.render_film(cam, scene, 4, 5, backend="wavefront").data
+    again = twf.render_wavefront(cam, scene, 4, 5, backend="brute")
+    brute = tpt.render_film(cam, scene, 4, 5, backend="brute").data
+    kern = tpt.render_film(cam, scene, 4, 5, backend="cuda").data
+    torch.cuda.synchronize()
+    assert float(film.mean()) > 0.0 and torch.equal(film, again)
+    assert float((film - brute).abs().max()) <= WAVEFRONT_BRUTE_ATOL
+    assert card.film_diff(film, kern)[1] <= MAX_FLIP_SHARE
 
 
 @pytest.mark.cuda
@@ -794,26 +843,335 @@ def test_wavefront_compaction_is_bit_identical(cuda_device, backend):
     assert float(base.mean()) > 0.0 and torch.equal(film, base)
 
 
-# A few of chip_smoke.py phase 15's randomized cases (the whole sweep runs
-# there): random scenes at odd launch shapes, on the normal library and on
-# the bounds-checked one, whose out-of-range index traps.
-FUZZ_CASES = [("trace", 0), ("trace", 107), ("trace", -3), ("trace", -1),
-              ("cluster", 0), ("cluster", -1), ("beam", 1), ("beam", -2)]
+# -- the main paths at their own sizes -------------------------------------
+
+
+def _launches():
+    return ttk.LAUNCHES, tck.LAUNCHES, tbk.LAUNCHES
+
+
+def _since(before):
+    """(trace, cluster, beam) launches since ``before`` (``_launches()``)."""
+    return tuple(n - b for n, b in zip(_launches(), before))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("checked", [False, True])
-@pytest.mark.parametrize("kind,index", FUZZ_CASES)
-def test_fuzz_cases_match_plain(cuda_device, monkeypatch, kind, index,
-                                checked):
-    """Each kernel bit for bit against its plain version on a random
-    scene, a second launch bit for bit against the first, and every
-    guarded buffer's NaN margins untouched."""
-    from pathtracer_tpu_torch.utils import build
+def test_cornell_1024_main_path(cuda_device, tmp_path):
+    """render() of the 1024^2 Cornell box at 256 spp through "auto": the
+    kernel's default loop and no other launch; a finite, lit film whose
+    brightest pixel sees the light; equal to the brute backend's film at
+    4 spp within the film bar."""
+    cam, scene = tpt.cornell_box(res=(1024, 1024), device=cuda_device)
+    default = ttk.LOOP_LAUNCHES[ttk.DEFAULT_LOOP]
+    before = _launches()
+    film = tpt.render(cam, scene, samples=256, depth=5,
+                      filename=str(tmp_path / "cornell.png"), verbose=False)
+    torch.cuda.synchronize()
+    trace, cluster, beam = _since(before)
+    assert trace > 0 and cluster == beam == 0
+    assert ttk.LOOP_LAUNCHES[ttk.DEFAULT_LOOP] - default == trace
+    img = film.data
+    assert tuple(img.shape) == (1024, 1024, 3)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01
+    # A pixel whose every sample hits the light (emission 1) averages
+    # exactly 1.0; lit walls stay far below it.
+    assert float(img.mean(dim=-1).max()) >= 0.99
+    card.brightest_sees_light(cam, scene, tpt.read_png(
+        str(tmp_path / "cornell.png")))
+    kern = tpt.render_film(cam, scene, 4, 5, backend="cuda").data
+    brute = tpt.render_film(cam, scene, 4, 5, backend="brute").data
+    torch.cuda.synchronize()
+    assert card.film_diff(kern, brute)[1] <= MAX_FLIP_SHARE
 
-    monkeypatch.setattr(build, "load_library", functools.partial(
-        build.load_library, checked=checked))
-    case = getattr(chip_smoke, f"fuzz_{kind}_cases")()[index]
-    got = chip_smoke.run_fuzz_case(tpt, cuda_device, kind, case)
-    assert got["launches"] == 2 and got["buffers"] >= 2
-    assert got["equal"] and got["repeat"] and got["guard_hits"] == 0
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ttk.LOOPS)
+@pytest.mark.parametrize("name", ["cornell", "specular05"])
+def test_trace_kernel_bit_identical_at_the_main_shape(cuda_device, name,
+                                                      loop):
+    """Each loop at the main path's launch shape (1024^2, 16 spp, depth 5)
+    on the Cornell box and modified_cornell(0.05): the kernel's sum equals
+    its plain version's bit for bit."""
+    if name == "cornell":
+        cam, scene = tpt.cornell_box(res=(1024, 1024), device=cuda_device)
+    else:
+        cam, scene = tpt.modified_cornell(0.05, res=(1024, 1024),
+                                          device=cuda_device)
+    before = ttk.LOOP_LAUNCHES[loop]
+    got = ttk.render_sum_cuda(cam, scene, 0, 16, 5, loop=loop)
+    want = ttk.render_sum_reference(cam, scene, 0, 16, 5, loop=loop)
+    torch.cuda.synchronize()
+    assert ttk.LOOP_LAUNCHES[loop] > before
+    assert float(want.mean()) > 0.0 and torch.equal(got, want)
+
+
+LARGE_SCENES = {   # name: (builder, main-path spp at 512^2)
+    "sphere9812": (lambda dev: tpt.meshes.sphere_in_box(50, 100, device=dev),
+                   64),
+    "garden105708": (lambda dev: tpt.meshes.mesh_garden(device=dev), 2048),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LARGE_SCENES))
+def test_large_scene_main_path(cuda_device, tmp_path, name):
+    """render() at 512^2 through "auto" launches the beam kernel and no
+    other; the film is finite and lit; the committed render's view (the
+    garden's 512^2 film, the sphere's 256^2 crop at 2048 spp) holds the
+    committed render's bars; the kernel at the main path's launch shape
+    equals its plain version on two bands of tiles."""
+    make, spp = LARGE_SCENES[name]
+    cam, sb = make(cuda_device)
+    scene = sb.build(device=cuda_device)
+    png = str(tmp_path / f"{name}.png")
+    before = _launches()
+    film = tpt.render(cam, scene, samples=spp, depth=5, filename=png,
+                      verbose=False)
+    torch.cuda.synchronize()
+    trace, cluster, beam = _since(before)
+    assert beam > 0 and trace == cluster == 0
+    img = film.data
+    assert tuple(img.shape) == (512, 512, 3)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01
+    if name == "sphere9812":
+        # The committed render is the 256^2 corner of this view.
+        tpt.render(card.with_res(cam, (256, 256)), scene, samples=2048,
+                   depth=5, filename=png, verbose=False)
+    card.hold_golden(png, card.GOLDENS[name], card.GOLDEN_MIN_PSNR[name])
+    card.hold_main_path_bands(cam, scene, spp)
+
+
+@pytest.mark.cuda
+def test_large_sphere_cluster_render(cuda_device):
+    """render() of sphere_in_box(50, 100) at 512^2, 4 spp, depth 5 through
+    backend="cluster": the cluster kernel and no other; a finite, lit
+    film."""
+    cam, sb = LARGE_SCENES["sphere9812"][0](cuda_device)
+    scene = sb.build(device=cuda_device)
+    before = _launches()
+    film = tpt.render(cam, scene, samples=4, depth=5, backend="cluster",
+                      verbose=False)
+    torch.cuda.synchronize()
+    trace, cluster, beam = _since(before)
+    assert cluster > 0 and trace == beam == 0
+    img = film.data
+    assert tuple(img.shape) == (512, 512, 3)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kind", [("sphere9812", "camera"),
+                                       ("sphere9812", "random"),
+                                       ("garden105708", "camera")])
+def test_cluster_kernel_holds_large_scene_rays(cuda_device, name, kind):
+    """65,536 rays through the render's own cluster set of a large scene:
+    camera rays of the 512^2 film, or random rays inside the room; t and
+    tid bit for bit against the plain version."""
+    cam, sb = LARGE_SCENES[name][0](cuda_device)
+    scene = sb.build(device=cuda_device)
+    cs = tck.clusters_for(scene)
+    gen = np.random.default_rng(6)
+    n = 1 << 16
+    if kind == "camera":
+        o, d = card.camera_rays(cam, n, gen)
+    else:
+        o = torch.from_numpy(gen.uniform(1, 499, (n, 3)).astype(np.float32))
+        d = gen.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        o, d = o.to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    before = tck.LAUNCHES
+    assert card.hold_clusters(o, d, cs, n) > n // 4
+    assert tck.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_garden_recovery_through_the_cluster_kernel(cuda_device):
+    """Three paired recovery steps on the garden at 64^2, 8 spp, depth 4:
+    one cluster launch a bounce of each render and no other kernel; then a
+    one-sided gradcheck of the two largest albedo gradients at 2 spp,
+    depth 3, under 0.05 (the JAX package's own run read 1.03e-2)."""
+    from pathtracer_tpu_torch import diff, inverse
+
+    cam, sb = tpt.meshes.mesh_garden(device=cuda_device)
+    scene = sb.build(device=cuda_device)
+    cam = card.with_res(cam, (64, 64))
+    target = tpt.render_film(cam, scene, 1024, 4, backend="beam").data
+    before = _launches()
+    _, losses = inverse.recover_materials(
+        cam, scene, target, steps=3, samples=8, depth=4, lr=0.08,
+        lr_end=8e-3, backend="cluster", optimize=("albedo",))
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    assert _since(before) == (0, 3 * 2 * 4, 0)
+    loss = diff.make_loss(cam, scene, target, 2, 3, backend="cluster")
+    params = diff.material_params(scene)
+    _, grads = _loss_and_grad(loss, params)
+    top = torch.argsort(grads["albedo"].abs().flatten())[-2:].tolist()
+    _, rel = diff.gradcheck(loss, params, eps=2e-2,
+                            indices=[("albedo", i) for i in top],
+                            mode="one_sided")
+    assert rel < 0.05, rel
+
+
+@pytest.mark.cuda
+def test_cornell_recovery_under_its_bars(cuda_device):
+    """tests/test_inverse.py's recovery on the card: 32^2, 250 steps, 64
+    spp, depth 4, the target rendered by the trace kernel; visible diffuse
+    albedo and emission errors under 0.15."""
+    from pathtracer_tpu_torch import inverse
+
+    cam, scene = tpt.cornell_box(res=(32, 32), device=cuda_device)
+    target = tpt.render_film(cam, scene, 2048, 4, backend="cuda").data
+    mats, losses = inverse.recover_materials(
+        cam, scene, target, steps=250, samples=64, depth=4, lr=0.08,
+        lr_end=4e-3, optimize=("albedo", "emit"))
+    assert np.isfinite(losses).all() and len(losses) == 250
+    mtype, alb_true, emit_true, _ = scene.host_materials()
+    vis = (inverse.visible_pixel_counts(cam, scene) >= 8) & (
+        mtype == tpt.DIFFUSE)
+    assert vis.sum() >= 10
+    alb = mats["albedo"].cpu().numpy()[:scene.num_tris]
+    emit = mats["emit"].cpu().numpy()[:scene.num_tris]
+    light = mtype == tpt.EMIT
+    alb_err = float(np.abs(alb - alb_true)[vis].mean())
+    emit_err = float(np.abs(emit[light] - emit_true[light]).mean())
+    assert alb_err < 0.15 and emit_err < 0.15, (alb_err, emit_err)
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_one_process(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one GPU):
+    the tile split (2, 1) of the trace and beam kernels' sharded renders is
+    one process's render_film bit for bit, the sample split (1, 2) one
+    process's sum of the same two sample windows; every rank launches the
+    kernel; the train step's parameters are equal on both ranks after each
+    step."""
+    work = str(tmp_path)
+    (res, spp), half = card.SHARD_CORNELL, card.SHARD_CORNELL[1] // 2
+    cam, scene = tpt.cornell_box(res=res, device=cuda_device)
+    ref = {"cornell_2x1": tpt.render_film(cam, scene, spp, 5,
+                                          backend="cuda").data,
+           "cornell_1x2": (ttk.render_sum_cuda(cam, scene, 0, half, 5)
+                           + ttk.render_sum_cuda(cam, scene, half, half, 5))
+           / spp}
+    res, spps = card.SHARD_GARDEN
+    cam_g, sb = tpt.meshes.mesh_garden(device=cuda_device)
+    cam_g, garden = card.with_res(cam_g, res), sb.build(device=cuda_device)
+    ref["garden_2x1"] = tpt.render_film(cam_g, garden, spps[1], 5,
+                                        backend="beam").data
+    half = spps[2] // 2
+    ref["garden_1x2"] = tbk._to_raster(
+        tbk.render_tiles_beam(cam_g, garden, 0, half, 5)
+        + tbk.render_tiles_beam(cam_g, garden, half, half, 5), *res) / spps[2]
+    res, spp, steps = card.SHARD_TRAIN
+    cam_t, scene_t = tpt.cornell_box(res=res, device=cuda_device)
+    torch.save(tpt.render_film(cam_t, scene_t, 4096, 5,
+                               backend="cuda").data.cpu(),
+               tmp_path / "target.pt")
+    ref = {k: v.cpu() for k, v in ref.items()}
+    del scene, garden, sb
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    done = card.run_shard_workers(work)
+    assert all(rc == 0 for rc, _ in done), "\n".join(t for _, t in done)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(card.SHARD_RANKS)]
+    assert all(r["backend"] == "gloo" for r in ranks)
+    for name, want in ref.items():
+        films = [torch.load(tmp_path / f"{name}_{r}.pt")
+                 for r in range(card.SHARD_RANKS)]
+        assert float(want.mean()) > 0.0
+        for r, film in enumerate(films):
+            assert torch.equal(film, want), (name, r)
+            assert ranks[r][name] > 0, (name, r)
+    assert all(np.isfinite(r["losses"]).all() for r in ranks)
+    for k in range(steps):
+        params = [torch.load(tmp_path / f"train{k}_{r}.pt")
+                  for r in range(card.SHARD_RANKS)]
+        for p in params[1:]:
+            assert p.keys() == params[0].keys()
+            assert all(torch.equal(p[n], params[0][n]) for n in p), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,backend,module", [
+    ("cornell", "cuda", ttk), ("garden105708", "beam", tbk)])
+def test_realtime_session_is_the_running_mean(cuda_device, name, backend,
+                                              module):
+    """Four 15-spp frames of the session at 256^2 launch the backend's
+    kernel; the accumulated film is the running mean of the same frames
+    rendered by render_film, bit for bit; 'w' resets it to frame 0."""
+    from pathtracer_tpu_torch.realtime import RealtimeSession
+
+    if name == "cornell":
+        cam, scene = tpt.cornell_box(res=(256, 256), device=cuda_device)
+    else:
+        cam, sb = tpt.meshes.mesh_garden(device=cuda_device)
+        cam, scene = (card.with_res(cam, (256, 256)),
+                      sb.build(device=cuda_device))
+    sess = RealtimeSession(cam, scene, depth=5, frame_samples=15)
+    assert sess.backend == backend
+    before = module.LAUNCHES
+    for _ in range(4):
+        img = sess.step()
+    assert module.LAUNCHES > before
+    assert img.shape == (256, 256, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
+    want = torch.zeros_like(sess._accum)
+    for k in range(4):
+        cur = tpt.render_film(cam, scene, 15, 5, seed=sess.seed + k,
+                              backend=backend).data
+        t = 1.0 / (k + 1)
+        want = want * (1.0 - t) + cur * t
+    assert torch.equal(sess._accum, want)
+    sess.key("w")
+    assert sess.frame == 0 and not bool(sess._accum.any())
+
+
+@pytest.mark.cuda
+def test_cli_render_sees_the_light(cuda_device, tmp_path):
+    """``render cornell`` at 256^2, 64 spp, backend cuda: the trace kernel
+    runs, and the PNG's brightest pixel sees the light."""
+    from pathtracer_tpu_torch import cli
+
+    png = str(tmp_path / "cornell.png")
+    before = ttk.LAUNCHES
+    cli.main(["render", "cornell", png, "--res", "256", "--spp", "64",
+              "--backend", "cuda"])
+    assert ttk.LAUNCHES > before
+    img = tpt.read_png(png)
+    assert img.shape == (256, 256, 3)
+    cam, scene = tpt.cornell_box(res=(256, 256), device=cuda_device)
+    card.brightest_sees_light(cam, scene, img)
+
+
+# -- the randomized sweep ---------------------------------------------------
+
+FUZZ_IDS = [(kind, i) for kind, cases in card.FUZZ_CASES.items()
+            for i in range(len(cases))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,index", FUZZ_IDS)
+def test_fuzz_cases_match_plain(cuda_device, kind, index):
+    """Each kernel twice on a random scene at an odd launch shape, on the
+    normal library: bit for bit against its plain version and against its
+    first launch, every guarded buffer's NaN margins untouched."""
+    got = card.run_fuzz_case(cuda_device, kind, card.FUZZ_CASES[kind][index])
+    assert card.case_holds(got, cuda_device), got
+
+
+@pytest.mark.cuda
+def test_fuzz_sweep_on_the_checked_library(cuda_device):
+    """Every case of the sweep, then the corner scene's launches 256 times,
+    on the bounds-checked library in a child process with
+    CUDA_LAUNCH_BLOCKING=1: no trap, no mismatch, no guard hit."""
+    done = card.run_checked_sweep()
+    assert done.returncode == 0, done.stdout[-20000:] + done.stderr[-20000:]
+
+
+@pytest.mark.cuda
+def test_replay_with_asynchronous_launches(cuda_device):
+    """The corner scene's launches 256 times on the normal library, each
+    launch followed by its plain version without waiting for the card."""
+    assert card.replay_mismatches(cuda_device) == 0

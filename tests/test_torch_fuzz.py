@@ -1,7 +1,7 @@
 """Randomized cross-backend sweep of the port: tests/test_fuzz.py's
 counterpart.
 
-Seeded random scenes (``chip_smoke.fuzz_scene``: an emitter quad, slivers
+Seeded random scenes (``_torch_card.fuzz_scene``: an emitter quad, slivers
 down to 10^-2 scale, overlapping triangles, Emit/Diffuse/Specular, an
 axis-aligned triangle, the camera looking at the centroid) are built by
 the JAX SceneBuilder and carried across (``_torch_parity.carry``), so both
@@ -23,15 +23,14 @@ sweep.  The port's ``"brute"`` films are held against the JAX package's
 brute and BVH paths (tests/test_fuzz.py holds its Pallas kernels to its
 brute path).
 
-The cases of ``chip_smoke.py`` phase 15, which holds each CUDA kernel
-against its plain version on the card, are checked here for the launch
-shapes they must reach, and a few of them run through their wrappers'
-CPU path (the plain versions) to exercise the sweep itself.
+The cases of the card's randomized sweep (``tests/_torch_card.py``, run
+by tests/test_torch_cuda.py), which hold each CUDA kernel against its
+plain version, are checked here for the launch shapes they must reach,
+and a few of them run through their wrappers' CPU path (the plain
+versions) to exercise the sweep itself.
 """
 
 import functools
-import os
-import sys
 
 import numpy as np
 import pytest
@@ -44,12 +43,9 @@ from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
 from pathtracer_tpu_torch.render import BRUTE_MAX, _auto_backend
 
+import _torch_card as card
+from _torch_card import fuzz_scene
 from _torch_parity import as_np, assert_films_close, carry
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-import chip_smoke  # noqa: E402
-from chip_smoke import fuzz_scene  # noqa: E402
 
 # (seed, triangles, film): the reference's seeds and sizes on odd films,
 # and one scene above BRUTE_MAX, where "auto" changes route.
@@ -154,8 +150,8 @@ ROW_MULTIPLE = 4   # csrc/trace_kernel.cu kUnroll (pt_trace_row_multiple)
 
 
 def test_sweep_cases_reach_the_launch_edges():
-    """Phase 15's cases hit the shapes the main paths never send."""
-    trace = chip_smoke.fuzz_trace_cases()
+    """The sweep's cases hit the shapes the main paths never send."""
+    trace = card.FUZZ_CASES["trace"]
     tris = {c["n_tris"] for c in trace}
     assert {1, ROW_MULTIPLE - 1, ROW_MULTIPLE, ROW_MULTIPLE + 1,
             ttk.MAX_CUDA_TRIS} <= tris <= set(range(1, ttk.MAX_CUDA_TRIS + 1))
@@ -170,12 +166,11 @@ def test_sweep_cases_reach_the_launch_edges():
     for c in trace:
         assert 0 <= c["h0"] < c["h0"] + c["band_h"] <= c["res"][1]
 
-    cluster = chip_smoke.fuzz_cluster_cases()
+    cluster = card.FUZZ_CASES["cluster"]
     assert any(c["rays"] % tck.BLOCK_RAYS for c in cluster)
     assert {c["kind"] for c in cluster} == {"camera", "inside", "axis"}
-    assert {c["sort_rays"] for c in cluster} == {False, True}
 
-    beam = chip_smoke.fuzz_beam_cases()
+    beam = card.FUZZ_CASES["beam"]
     assert all(c["res"][0] % 64 or c["res"][1] % 64 for c in beam)
     assert {1, 3} <= {c["depth"] for c in beam}
     for c in beam:
@@ -191,10 +186,10 @@ def test_sweep_sets_reach_both_cluster_instances():
     """One set of one cluster (no tree), and sets on both sides of the
     cluster kernel's shared-memory rule."""
     seen = set()
-    for n, max_tris in chip_smoke.FUZZ_CLUSTER_SETS:
+    for n, max_tris in card.FUZZ_CLUSTER_SETS:
         _, scene = fuzz_scene(tpt, 2000 + n, n, (8, 8), device="cpu")
         cs = tpt.build_clusters(scene, max_tris=max_tris)
-        seen.add(chip_smoke.cluster_instance(cs))
+        seen.add(card.cluster_instance(cs))
         if n == 1:
             assert cs.num_clusters == 1 and cs.tree_depth == 0
     assert seen == {"smem", "global"}
@@ -202,7 +197,7 @@ def test_sweep_sets_reach_both_cluster_instances():
 
 def test_sweep_scenes_reach_all_beam_instances():
     seen = set()
-    for n, specular in chip_smoke.FUZZ_BEAM_SCENES:
+    for n, specular in card.FUZZ_BEAM_SCENES:
         _, scene = fuzz_scene(tpt, 3000 + n, n, (8, 8), specular=specular,
                               device="cpu")
         accel = tbk._accel_for(scene)
@@ -218,15 +213,13 @@ def test_sweep_case_runs_on_the_cpu(kind, index):
     """On CPU tensors the wrappers take their plain versions: the case
     must then agree with itself, allocate guarded buffers and launch
     nothing."""
-    case = getattr(chip_smoke, f"fuzz_{kind}_cases")()[index]
-    got = chip_smoke.run_fuzz_case(tpt, torch.device("cpu"), kind, case)
-    assert got["launches"] == 0
-    assert got["equal"] and got["repeat"] and got["guard_hits"] == 0
-    assert got["buffers"] >= 1
+    dev = torch.device("cpu")
+    got = card.run_fuzz_case(dev, kind, card.FUZZ_CASES[kind][index])
+    assert card.case_holds(got, dev), got
 
 
 def test_guarded_torch_sees_a_write_past_an_output():
-    guard = chip_smoke.GuardedTorch()
+    guard = card.GuardedTorch()
     film = guard.zeros((4, 3), dtype=torch.float32, device="cpu")
     slots = guard.empty(5, dtype=torch.int32, device="cpu")
     rows = guard.cat([torch.ones(2, 3), torch.zeros(1, 3)])
@@ -235,45 +228,3 @@ def test_guarded_torch_sees_a_write_past_an_output():
     guard.buffers[1][guard.MARGIN + 5] = 0      # one element past `slots`
     assert guard.hits() == 1
 
-
-def _sweep_record(instances):
-    return {"cases": 3, "launches": 6, "mismatches": [],
-            "repeat_mismatches": [], "guard_hits": 0,
-            "instances": dict.fromkeys(instances, 1), "seconds": 0.5}
-
-
-@pytest.mark.parametrize("fault", [None, "guard", "mismatch", "instance",
-                                   "launches", "replay"])
-def test_fuzz_verdict(fault):
-    """Phase 15 fails on any guard hit, mismatch, missed instance, case
-    that did not launch the kernel twice, or replay mismatch."""
-    instances = {"trace": ["mt/diffuse", "mt/specular", "plucker/diffuse",
-                           "plucker/specular"],
-                 "cluster": ["smem", "global"],
-                 "beam": ["diffuse/table", "diffuse/inline",
-                          "specular/table", "specular/inline"]}
-    replay = {"pairs": 512, "mismatches": 0, "seconds": 9.0}
-    child = {label: {"sweep": {k: _sweep_record(v)
-                               for k, v in instances.items()}}
-             for label in ("checked", "normal")}
-    child["checked"]["replay"] = dict(replay)
-    results = {"child": child, "replay": replay}
-    beam = child["normal"]["sweep"]["beam"]
-    if fault == "guard":
-        beam["guard_hits"] = 1
-    elif fault == "mismatch":
-        beam["repeat_mismatches"].append({"n_tris": 24})
-    elif fault == "instance":
-        del beam["instances"]["specular/inline"]
-    elif fault == "launches":
-        beam["launches"] = 5
-    elif fault == "replay":
-        replay["mismatches"] = 1
-    bad, summary = chip_smoke.fuzz_verdict(results)
-    assert "trace 3 cases (6 launches)" in summary
-    if fault is None:
-        assert bad == []
-    elif fault == "replay":
-        assert bad == ["unblocked replay"]
-    else:
-        assert bad == ["normal beam"]
