@@ -20,7 +20,8 @@ material tensors, and autograd through the forward accumulation of
 
 The gradient runs through plain PyTorch only: the shade-table gather
 (``ops/trace.gather_features``) and the bounce loop.  The intersection is
-the backend's: ``"brute"`` (dense Möller–Trumbore, in chunks of rays),
+the backend's: ``"brute"`` (dense Möller–Trumbore: on a CUDA scene the
+brute kernel, one launch a bounce; on the CPU in chunks of rays),
 ``"bvh"`` (per-ray BVH traversal; ``"bvh-gather"`` is an alias, the JAX
 package's name for it) or ``"cluster"`` (the CUDA cluster kernel, which on
 a CUDA scene launches or raises).  Finite differences of the same
@@ -39,7 +40,7 @@ from . import rng as prng
 from .bvh import build_bvh
 from .camera import Camera
 from .ops import trace as trace_ops
-from .ops.cuda import cluster_kernel
+from .ops.cuda import brute_kernel, cluster_kernel
 from .ops.intersect import intersect_brute
 from .render import _tile_intersect
 from .scene import Scene
@@ -49,9 +50,9 @@ MaterialParams = Dict[str, torch.Tensor]  # albedo (T,3), emit (T,3), roughness 
 BACKENDS = ("brute", "bvh", "cluster")
 _ALIASES = {"bvh-gather": "bvh"}
 
-# Ray-triangle pairs of one chunk of the brute intersection: each of its
-# (rays, T, 3) temporaries then holds about 0.8 GB, where a whole 128^2,
-# 192-spp half-render would need 1.2 GB for each of several.
+# Ray-triangle pairs of one chunk of the brute intersection on the CPU:
+# each of its (rays, T, 3) temporaries then holds about 0.8 GB, where a
+# whole 128^2, 192-spp half-render would need 1.2 GB for each of several.
 BRUTE_PAIRS = 1 << 26
 
 
@@ -70,9 +71,16 @@ def _backend(backend: str) -> str:
 
 
 def _intersect_brute_chunked(scene: Scene):
-    """Dense intersection over flat chunks of at most BRUTE_PAIRS / T rays;
-    each ray's hit is the one ``intersect_brute`` gives the whole batch."""
+    """Dense intersection, each ray's hit the one ``intersect_brute`` gives
+    the whole batch: on a CUDA scene one launch of the brute kernel a call
+    (``ops/cuda/brute_kernel``, memory O(rays)); on a CPU scene
+    ``intersect_brute`` over flat chunks of at most BRUTE_PAIRS / T rays."""
     v1, v2, v3 = scene.v1, scene.v2, scene.v3
+    if scene.device.type == "cuda":
+        def intersect_cuda(o, d):
+            return brute_kernel.intersect_brute_cuda(
+                o.contiguous(), d.contiguous(), v1, v2, v3)
+        return intersect_cuda
     chunk = max(1, BRUTE_PAIRS // scene.padded_size)
 
     def intersect(o, d):

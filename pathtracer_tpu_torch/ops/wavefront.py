@@ -161,11 +161,12 @@ def compact(queue):
 
 def _make_intersect(scene: Scene, backend: str, accel):
     """(intersect, park pose) of ``backend``, resolved once per render:
-    ``"brute"`` the dense test in chunks of at most ``diff.BRUTE_PAIRS``
-    ray-triangle pairs, no park pose; ``"bvh"`` the per-ray
-    ``intersect_bvh`` and ``"cluster"`` the CUDA cluster kernel, on
-    ``accel`` or built (the cluster set from ``clusters_for``'s cache), as
-    ``render_film``'s tile backends take them."""
+    ``"brute"`` the dense test (``diff._intersect_brute_chunked``: the
+    brute kernel on a CUDA scene, chunks of rays on the CPU), no park
+    pose; ``"bvh"`` the per-ray ``intersect_bvh`` and ``"cluster"`` the
+    CUDA cluster kernel, on ``accel`` or built (the cluster set from
+    ``clusters_for``'s cache), as ``render_film``'s tile backends take
+    them."""
     if backend == "brute":
         return _intersect_brute_chunked(scene), None
     return _tile_intersect(backend, scene, accel)

@@ -13,9 +13,11 @@ never send: films that are no power of two, short last warps, sample
 counts off the 16-sample pool, row counts at and around the row multiple
 and the 512-row ceiling, bands one row high at h0 > 0, windows at s0 > 0, a
 one-cluster set, cluster tables too large for shared memory, films off the
-64-pixel squares, the last tile alone.  Every buffer of a wrapper and every
-accel input lies between NaN guard margins that must come back untouched
-(``GuardedTorch``), and a second launch must give the first one's bits.
+64-pixel squares, the last tile alone, brute row counts at and around the
+brute kernel's shared-memory tile with tied, degenerate and near-EPS rows.
+Every buffer of a wrapper and every accel input lies between NaN guard
+margins that must come back untouched (``GuardedTorch``), and a second
+launch must give the first one's bits.
 """
 
 import contextlib
@@ -33,6 +35,7 @@ import torch
 import pathtracer_tpu_torch as pt
 from pathtracer_tpu_torch.camera import get_rays
 from pathtracer_tpu_torch.ops.cuda import beam_kernel as bk
+from pathtracer_tpu_torch.ops.cuda import brute_kernel as brk
 from pathtracer_tpu_torch.ops.cuda import cluster_kernel as ck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
 from pathtracer_tpu_torch.ops.intersect import intersect_brute
@@ -200,6 +203,16 @@ FUZZ_BEAM_SCENES = ((2, False), (24, False), (24, True), (160, False),
                     (160, True), (600, True))
 FUZZ_BEAM_FILMS = ((33, 17), (100, 70), (65, 64), (130, 3))
 FUZZ_BEAM_DRAWS = 4
+# Row counts of the brute kernel's cases, at and around one and two of its
+# shared-memory tiles (brk.TILE_ROWS = 256); from BRUTE_EXTRA_FROM rows on
+# a case adds BRUTE_TIES exact copies and BRUTE_TIES turned copies of its
+# triangles and BRUTE_EPS_ROWS near-EPS rows (``brute_rows``).
+FUZZ_BRUTE_ROWS = (1, 7, 40, 255, 256, 257, 512, 513, 700)
+FUZZ_BRUTE_KINDS = ("camera", "inside", "axis", "eps")
+BRUTE_EXTRA_FROM = 40
+BRUTE_TIES = 6
+BRUTE_EPS_ROWS = 16
+BRUTE_EPS_Z = 40.0        # the near-EPS rows' stack, beyond the scene
 FUZZ_REPLAYS = 256         # rounds of the corner-scene launch sequence
 FUZZ_TIMEOUT = 900         # seconds for the checked library's child
 
@@ -326,8 +339,26 @@ def fuzz_beam_cases():
     return cases
 
 
+def fuzz_brute_cases():
+    """The brute kernel's cases: each row count of FUZZ_BRUTE_ROWS with
+    each kind of rays (camera rays; origins anywhere in the triangles' box,
+    some direction components exactly 0; origins at row centroids,
+    directions along an axis; rays along z through the near-EPS rows, for
+    cases that have them) at a drawn ray count."""
+    r = np.random.default_rng(18)
+    cases = []
+    for rows in FUZZ_BRUTE_ROWS:
+        for kind in FUZZ_BRUTE_KINDS:
+            if kind == "eps" and rows < BRUTE_EXTRA_FROM:
+                continue
+            cases.append(dict(rows=rows, kind=kind,
+                              rays=int(r.choice(FUZZ_RAYS)),
+                              seed=int(r.integers(1 << 31))))
+    return cases
+
+
 FUZZ_CASES = {"trace": fuzz_trace_cases(), "cluster": fuzz_cluster_cases(),
-              "beam": fuzz_beam_cases()}
+              "beam": fuzz_beam_cases(), "brute": fuzz_brute_cases()}
 
 
 class GuardedTorch:
@@ -381,7 +412,7 @@ def guarded_wrappers(guard):
     """The kernel wrappers' ``torch`` replaced by ``guard`` (the trace
     kernel's module too: the beam wrapper packs its camera there)."""
     with contextlib.ExitStack() as stack:
-        for module in (ttk, ck, bk):
+        for module in (ttk, ck, bk, brk):
             stack.enter_context(mock.patch.object(module, "torch", guard))
         yield
 
@@ -413,6 +444,87 @@ def fuzz_rays(case, cam, cs, dev):
         o = centres[gen.integers(0, centres.shape[0], n)]
         d = np.zeros((n, 3))
         d[np.arange(n), gen.integers(0, 3, n)] = gen.choice([-1.0, 1.0], n)
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(dev),
+            torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def brute_eps_rows(n=BRUTE_EPS_ROWS):
+    """(v1, v2, v3) (n, 3) float32: right triangles with legs e1 = (s, 0, 0)
+    and e2 = (0, s', 0) at x = y = 0, stacked along z from BRUTE_EPS_Z in a
+    shuffled order.  s = 2^-10, and s' steps by one ulp from EPS * 2^10,
+    so a ray along z computes |a| = s s' exactly: the first n - n // 2
+    rows fall below EPS (they fail), the rest reach it."""
+    s = np.float32(2.0 ** -10)
+    up = [np.float32(np.float32(1e-6) / s)]     # |a| = EPS exactly
+    while len(up) < n // 2:
+        up.append(np.nextafter(up[-1], np.float32(1.0)))
+    down = [np.nextafter(up[0], np.float32(0.0))]
+    while len(down) < n - n // 2:
+        down.append(np.nextafter(down[-1], np.float32(0.0)))
+    legs = np.array(down[::-1] + up, np.float32)
+    z = BRUTE_EPS_Z + np.random.default_rng(n).permutation(n) * 0.125
+    v1 = np.stack([np.zeros(n), np.zeros(n), z], 1).astype(np.float32)
+    v2 = v1 + np.array([s, 0, 0], np.float32)
+    v3 = v1 + np.stack([np.zeros(n), legs, np.zeros(n)], 1)
+    return v1, v2, v3.astype(np.float32)
+
+
+def brute_rows(seed, rows, dev):
+    """(camera, (v1, v2, v3)) of a brute case: ``rows`` rows (T, 3)
+    float32 on ``dev``: a fuzz_scene's triangles; from BRUTE_EXTRA_FROM
+    rows on, BRUTE_TIES exact copies of some of them (exact ties, the lower
+    row must win), BRUTE_TIES copies with their vertices turned to
+    (v2, v3, v1) (the same triangle by other arithmetic) and the near-EPS
+    rows; then one to three all-zero rows (the padding rows' degenerate
+    triangles), where ``rows`` leaves room for them."""
+    r = np.random.default_rng(seed)
+    extra = (2 * BRUTE_TIES + BRUTE_EPS_ROWS
+             if rows >= BRUTE_EXTRA_FROM else 0)
+    n = max(1, rows - extra - int(r.integers(1, 4)))
+    cam, scene = fuzz_scene(pt, seed, n, device=dev)
+    v = list(scene.host_verts())
+    if extra:
+        same, turn = r.integers(0, n, BRUTE_TIES), r.integers(0, n, BRUTE_TIES)
+        eps = brute_eps_rows()
+        v = [np.concatenate([v[k], v[k][same], v[(k + 1) % 3][turn], eps[k]])
+             for k in range(3)]
+    pad = np.zeros((rows - v[0].shape[0], 3), np.float32)
+    return cam, tuple(torch.from_numpy(np.concatenate([x, pad])).to(dev)
+                      for x in v)
+
+
+def brute_rays(case, cam, v, dev):
+    """(origins, directions) (R, 3) float32 of a brute case (``v``: its
+    rows from ``brute_rows``)."""
+    gen = np.random.default_rng(case["seed"])
+    n = case["rays"]
+    kind = case["kind"]
+    if kind == "camera":
+        return camera_rays(cam, n, gen)
+    v1, v2, v3 = (x.cpu().numpy() for x in v)
+    if kind == "inside":
+        pts = np.concatenate([v1, v2, v3])
+        lb, rt = pts.min(0), pts.max(0)
+        o = lb + gen.random((n, 3)) * (rt - lb)
+        d = gen.normal(size=(n, 3))
+        zero = gen.random((n, 3)) < 0.3
+        zero[np.all(zero, axis=1), 0] = False
+        d[zero] = 0.0
+    elif kind == "axis":
+        o = ((v1 + v2 + v3) / 3.0)[gen.integers(0, v1.shape[0], n)]
+        d = np.zeros((n, 3))
+        d[np.arange(n), gen.integers(0, 3, n)] = gen.choice([-1.0, 1.0], n)
+    else:
+        # Inside the smallest near-EPS triangle, from below or above the
+        # stack, along z.
+        up = gen.random(n) < 0.5
+        s = 2.0 ** -10
+        o = np.stack([gen.uniform(0.1, 0.4, n) * s,
+                      gen.uniform(0.1, 0.4, n) * s,
+                      np.where(up, BRUTE_EPS_Z - 5.0, BRUTE_EPS_Z + 7.0)], 1)
+        d = np.zeros((n, 3))
+        d[:, 2] = np.where(up, 1.0, -1.0)
     d = d / np.linalg.norm(d, axis=1, keepdims=True)
     return (torch.from_numpy(o.astype(np.float32)).to(dev),
             torch.from_numpy(d.astype(np.float32)).to(dev))
@@ -477,6 +589,19 @@ def run_fuzz_case(dev, kind, case):
 
         def plain():
             return ck.intersect_clusters_reference(o, d, cs)
+    elif kind == "brute":
+        cam, v = brute_rows(case["seed"], case["rows"], dev)
+        o, d = brute_rays(case, cam, v, dev)
+        g = [guard.copy(x) for x in (o, d, *v)]
+        module = brk
+        instance = ("one tile" if case["rows"] <= brk.TILE_ROWS
+                    else "tiles")
+
+        def run():
+            return brk.intersect_brute_cuda(*g)
+
+        def plain():
+            return intersect_brute(o, d, *v)
     else:
         cam, scene = fuzz_scene(pt, 3000 + case["n_tris"], case["n_tris"],
                                 case["res"], specular=case["specular"],

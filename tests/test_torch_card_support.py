@@ -17,6 +17,7 @@ import torch
 
 import pathtracer_tpu_torch as tpt
 from pathtracer_tpu_torch.ops.cuda import beam_kernel as tbk
+from pathtracer_tpu_torch.ops.cuda import brute_kernel as tbr
 from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
 
@@ -65,9 +66,12 @@ def _clusters():
 @pytest.mark.parametrize("hold, module, name, pick", [
     (lambda: _fuzz("trace"), ttk, "render_sum_cuda", lambda out: out),
     (lambda: _fuzz("beam"), tbk, "render_tiles_beam", lambda out: out),
+    (lambda: _fuzz("brute"), tbr, "intersect_brute_cuda",
+     lambda out: out[0]),
     (_bands, tbk, "render_tiles_beam", lambda out: out),
     (_clusters, tck, "intersect_clusters", lambda out: out[0]),
-], ids=["fuzz_trace", "fuzz_beam", "main_path_bands", "clusters"])
+], ids=["fuzz_trace", "fuzz_beam", "fuzz_brute", "main_path_bands",
+        "clusters"])
 def test_one_ulp_in_the_kernel_fails_the_hold(monkeypatch, hold, module,
                                               name, pick):
     """A hold passes on the plain version and fails once one value of the

@@ -30,8 +30,10 @@ import torch
 
 import pathtracer_tpu_torch as tpt
 from pathtracer_tpu_torch.ops.cuda import beam_kernel as tbk
+from pathtracer_tpu_torch.ops.cuda import brute_kernel as tbr
 from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
+from pathtracer_tpu_torch.ops.intersect import intersect_brute
 from pathtracer_tpu_torch.utils import profiling
 
 import _torch_card as card
@@ -725,6 +727,101 @@ def test_diff_cluster_kernel_matches_plain(cuda_device, monkeypatch, sphere,
         assert err <= DIFF_GRAD_RTOL, (k, err)
         if gather == "onehot":
             assert torch.equal(g, plain_grads[k]), k
+
+
+def _recorded_brute_calls(monkeypatch):
+    """Each call of the brute kernel's wrapper from now on, in order: its
+    rays (copied) and hits."""
+    calls = []
+    launch = tbr.intersect_brute_cuda
+
+    def record(o, d, v1, v2, v3):
+        t, tid = launch(o, d, v1, v2, v3)
+        calls.append((o.clone(), d.clone(), t, tid))
+        return t, tid
+
+    monkeypatch.setattr(tbr, "intersect_brute_cuda", record)
+    return calls
+
+
+@pytest.mark.cuda
+def test_brute_kernel_holds_the_recovery_rays(cuda_device, monkeypatch):
+    """One half-film of the Cornell recovery at its own width (128^2, 192
+    spp, depth 5) through diff.render_film_diff: one launch a bounce of
+    3,145,728 rays, and each bounce's (t, tid) equal intersect_brute's over
+    the CPU path's chunks bit for bit: the camera rays, the bounce rays
+    from surface points, and the rays of dead paths at their stale
+    poses."""
+    from pathtracer_tpu_torch import diff
+
+    cam, scene = tpt.cornell_box(res=(128, 128), device=cuda_device)
+    calls = _recorded_brute_calls(monkeypatch)
+    before = tbr.LAUNCHES
+    film = diff.render_film_diff(cam, scene, diff.material_params(scene),
+                                 192, 5)
+    assert tbr.LAUNCHES == before + 5 and len(calls) == 5
+    assert float(film.mean()) > 0.0
+    chunk = diff.BRUTE_PAIRS // scene.padded_size
+    prev = None
+    for b, (o, d, t, tid) in enumerate(calls):
+        assert o.shape == (192, 128, 128, 3) and tid.shape == o.shape[:-1]
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        want = [intersect_brute(o[r:r + chunk], d[r:r + chunk], scene.v1,
+                                scene.v2, scene.v3)
+                for r in range(0, o.shape[0], chunk)]
+        assert torch.equal(t.reshape(-1), torch.cat([w[0] for w in want]))
+        assert torch.equal(tid.reshape(-1),
+                           torch.cat([w[1] for w in want])), b
+        hit = float((tid >= 0).float().mean())
+        assert 0.0 < hit < 1.0, (b, hit)
+        if prev is not None:
+            stale = (o == prev[0]).all(-1) & (d == prev[1]).all(-1)
+            assert bool(stale.any()) and not bool(stale.all()), b
+        prev = (o, d)
+
+
+@pytest.mark.cuda
+def test_brute_kernel_train_step_matches_plain(cuda_device, monkeypatch):
+    """One inverse._train_step of a Cornell recovery at 32^2, 16 spp
+    paired, depth 5 (albedo and emission): one launch a bounce of each
+    half-film, and the loss, the parameters and Adam's moments equal bit
+    for bit those of the same step with intersect_brute in the kernel's
+    place."""
+    from pathtracer_tpu_torch import inverse
+
+    cam, scene = tpt.cornell_box(res=(32, 32), device=cuda_device)
+    target = tpt.render_film(cam, scene, 256, 5, backend="cuda").data
+    optimize = ("albedo", "emit")
+
+    def step():
+        start = inverse.init_params(scene)
+        params = {n: start[n].detach().clone().requires_grad_(True)
+                  for n in inverse.PARAM_NAMES}
+        opt = torch.optim.Adam([params[n] for n in inverse.PARAM_NAMES],
+                               lr=0.08, betas=inverse.ADAM_BETAS,
+                               eps=inverse.ADAM_EPS)
+        pb = inverse._Problem(
+            camera=cam, scene=scene, target=target, samples=16, depth=5,
+            seed=7, backend="brute", accel=None, loss="paired",
+            rel_eps=2e-2, masks=inverse._row_masks(scene, optimize),
+            rough_spsa=False)
+        loss = inverse._train_step(pb, params, opt, 0, 0.08)
+        state = [opt.state[params[n]] for n in inverse.PARAM_NAMES]
+        return loss, [params[n].detach() for n in inverse.PARAM_NAMES] + [
+            s[k] for s in state for k in ("exp_avg", "exp_avg_sq")]
+
+    before = tbr.LAUNCHES
+    loss, leaves = step()
+    assert tbr.LAUNCHES == before + 2 * 5
+    with monkeypatch.context() as m:
+        m.setattr(tbr, "intersect_brute_cuda", intersect_brute)
+        plain_loss, plain_leaves = step()
+    torch.cuda.synchronize()
+    assert tbr.LAUNCHES == before + 2 * 5
+    assert math.isfinite(loss) and loss == plain_loss
+    assert any(bool(x.any()) for x in leaves[3:])
+    for k, (x, y) in enumerate(zip(leaves, plain_leaves)):
+        assert torch.equal(x, y), k
 
 
 @pytest.mark.cuda

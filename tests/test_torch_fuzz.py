@@ -38,7 +38,10 @@ import torch
 
 import pathtracer_tpu as jpt
 import pathtracer_tpu_torch as tpt
+from pathtracer_tpu_torch.linalg import EPS
+from pathtracer_tpu_torch.ops import intersect as tisect
 from pathtracer_tpu_torch.ops.cuda import beam_kernel as tbk
+from pathtracer_tpu_torch.ops.cuda import brute_kernel as tbr
 from pathtracer_tpu_torch.ops.cuda import cluster_kernel as tck
 from pathtracer_tpu_torch.ops.cuda import trace_kernel as ttk
 from pathtracer_tpu_torch.render import BRUTE_MAX, _auto_backend
@@ -207,8 +210,31 @@ def test_sweep_scenes_reach_all_beam_instances():
     assert seen == {(s, i) for s in (False, True) for i in (False, True)}
 
 
+def test_sweep_brute_cases_reach_the_tile_and_eps_edges():
+    """Row counts at and around one and two shared-memory tiles, every
+    kind of rays, and near-EPS rows on both sides of the test's EPS for
+    rays along z; ties, turned copies and zero rows in the rows."""
+    brute = card.FUZZ_CASES["brute"]
+    tile = tbr.TILE_ROWS
+    assert {1, tile - 1, tile, tile + 1, 2 * tile, 2 * tile + 1} <= {
+        c["rows"] for c in brute}
+    assert {c["kind"] for c in brute} == set(card.FUZZ_BRUTE_KINDS)
+    assert any(c["rays"] % tbr.BLOCK_RAYS for c in brute)
+    v1, v2, v3 = (torch.from_numpy(x) for x in card.brute_eps_rows())
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(v1.shape[0], 3)
+    a = (tisect.cross(d, v3 - v1) * (v2 - v1)).sum(-1).abs()
+    below = int((a < EPS).sum())
+    assert below == v1.shape[0] - v1.shape[0] // 2 and float(a.max()) < 2e-6
+    _, (w1, w2, w3) = card.brute_rows(7, 300, "cpu")
+    assert w1.shape == (300, 3)
+    rows = torch.cat([w1, w2, w3], 1)
+    assert len(torch.unique(rows, dim=0)) < 300       # exact copies
+    assert bool((rows == 0).all(1).any())             # a zero row
+
+
 @pytest.mark.parametrize("kind,index", [("trace", 0), ("trace", -1),
-                                        ("cluster", 0), ("beam", 1)])
+                                        ("cluster", 0), ("beam", 1),
+                                        ("brute", 0), ("brute", -1)])
 def test_sweep_case_runs_on_the_cpu(kind, index):
     """On CPU tensors the wrappers take their plain versions: the case
     must then agree with itself, allocate guarded buffers and launch
