@@ -44,6 +44,7 @@ from .ops.cuda import brute_kernel, cluster_kernel
 from .ops.intersect import intersect_brute
 from .render import _tile_intersect
 from .scene import Scene
+from .utils.profiling import trace_annotation
 
 MaterialParams = Dict[str, torch.Tensor]  # albedo (T,3), emit (T,3), roughness (T,)
 
@@ -132,21 +133,24 @@ def render_film_diff(camera: Camera, scene: Scene, params: MaterialParams,
     one pass, as a function of ``params`` (albedo, emit, roughness; any
     subset, the rest the scene's).  Disjoint sample windows average to the
     film of their union.  ``accel`` (from :func:`make_accel`) saves the
-    build across calls."""
-    backend = _backend(backend)
-    if backend != "brute" and accel is None:
-        accel = make_accel(scene, backend)
-    intersect, park = _make_intersect(scene, backend, accel)
-    table = trace_ops.shade_table(scene.replace_materials(**params))
-    width, height = camera.res
-    dev = scene.device
-    w = torch.arange(width, device=dev).expand(height, width)
-    h = torch.arange(height, device=dev)[:, None].expand(height, width)
-    sidx = torch.arange(sample_offset, sample_offset + samples, device=dev)
-    rad = trace_ops.sample_radiance(camera, scene, table, w, h, sidx, depth,
-                                    seed, intersect=intersect,
-                                    park_pose=park)
-    return rad.mean(dim=0)
+    build across calls.  The span ``pt.diff.render`` covers the whole
+    call: two a paired recovery step."""
+    with trace_annotation("pt.diff.render"):
+        backend = _backend(backend)
+        if backend != "brute" and accel is None:
+            accel = make_accel(scene, backend)
+        intersect, park = _make_intersect(scene, backend, accel)
+        table = trace_ops.shade_table(scene.replace_materials(**params))
+        width, height = camera.res
+        dev = scene.device
+        w = torch.arange(width, device=dev).expand(height, width)
+        h = torch.arange(height, device=dev)[:, None].expand(height, width)
+        sidx = torch.arange(sample_offset, sample_offset + samples,
+                            device=dev)
+        rad = trace_ops.sample_radiance(camera, scene, table, w, h, sidx,
+                                        depth, seed, intersect=intersect,
+                                        park_pose=park)
+        return rad.mean(dim=0)
 
 
 def make_loss(camera: Camera, scene: Scene, target, samples: int,

@@ -90,12 +90,23 @@ def gather_features(table: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
 def park_pose(scene: Scene):
     """Guaranteed-miss pose for dead rays: beyond the scene AABB's upper
     corner, pointing +x away from it.  The offset is relative to the
-    extent, so it survives float32 rounding at large coordinates."""
-    v1h, v2h, v3h = scene.host_verts()
+    extent, so it survives float32 rounding at large coordinates.
+
+    Kept on the scene beside the host vertex arrays it was computed from,
+    and reused while the scene returns those very arrays (until a vertex
+    tensor is edited): the bounds of a 100k-triangle mesh take the host
+    milliseconds, and the differentiable path asks twice a step."""
+    hv = scene._fresh("_host_v")
+    memo = getattr(scene, "_park_pose", None)
+    if memo is not None and memo[0] is hv:
+        return memo[1]
+    v1h, v2h, v3h = (a[:scene.num_tris] for a in hv)
     hi = np.maximum(np.maximum(v1h, v2h), v3h).max(0)
     lo = np.minimum(np.minimum(v1h, v2h), v3h).min(0)
     off = max(1.0, 1e-3 * float((hi - lo).max()))
-    return (tuple(float(x) + off for x in hi), (1.0, 0.0, 0.0))
+    pose = (tuple(float(x) + off for x in hi), (1.0, 0.0, 0.0))
+    object.__setattr__(scene, "_park_pose", (hv, pose))
+    return pose
 
 
 def park_tensors(pose, shape, device):

@@ -199,6 +199,22 @@ def test_park_pose_matches_jax(name):
     assert ttrace.park_pose(tscene) == jtrace.park_pose(jscene)
 
 
+def test_park_pose_is_kept_until_a_vertex_edit():
+    """The pose is computed once per content version of the vertices: the
+    same object while they are unedited, also through a scene with its
+    materials swapped; after an in-place edit, the pose of the edited
+    vertices."""
+    _, tscene = _pair("garden2")
+    pose = ttrace.park_pose(tscene)
+    assert ttrace.park_pose(tscene) is pose
+    swapped = tscene.replace_materials(albedo=tscene.albedo * 0.5)
+    assert ttrace.park_pose(swapped) == pose
+    with torch.no_grad():
+        tscene.v2[0] += 5000.0
+    moved = ttrace.park_pose(tscene)
+    assert moved != pose and moved[0][0] > pose[0][0] + 4000.0
+
+
 def test_trace_rays_park_pose_keeps_radiance():
     _, tscene = _pair("sphere8x12")
     cam, _ = tmeshes.sphere_in_box(8, 12, device="cpu")

@@ -1110,6 +1110,68 @@ def test_garden_recovery_through_the_cluster_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+def test_garden_recovery_steps_follow_the_plain_reference(cuda_device):
+    """The benchmark's garden recovery at 64^2, 8 spp, depth 4: two steps
+    of ``inverse._train_step`` through the cluster kernel against the
+    plain mesh recovery (``benchmark/reference/recover_mesh.py``); each
+    loss, the first gradient and the update within the ``garden_recover``
+    cell's limits."""
+    from benchmark.drivers.recover import TARGET_SEED_MIX
+    from benchmark.harness import core
+    from benchmark.reference import compare, scenes
+    from benchmark.reference.recover import start_params
+    from benchmark.reference.recover_mesh import MeshRecovery, tracer
+    from pathtracer_tpu_torch import diff, inverse
+    from pathtracer_tpu_torch.scene import Scene
+
+    ctx = core.context("garden_recover", 2**31 + 29, 0.0, False, 0.0)
+    t, limits = ctx.traffic, ctx.workload["limits"]
+    res, spp, depth, steps = (64, 64), 8, t["depth"], 2
+    arrays = scenes.make_scene(ctx.config)
+    cam_ref = scenes.make_camera(ctx.config, res)
+    pix = torch.arange(res[0] * res[1], device=cuda_device)
+    target = tracer(arrays, cam_ref, cuda_device).film(
+        pix % res[0], pix // res[0], 64, depth, ctx.seed ^ TARGET_SEED_MIX,
+        64).reshape(res[1], res[0], 3)
+    scene = Scene.from_arrays(*arrays.as_args(), device=cuda_device)
+    p0 = start_params(arrays, cuda_device)
+    params = {n: p0[n].clone().requires_grad_(True)
+              for n in inverse.PARAM_NAMES}
+    opt = torch.optim.Adam([params[n] for n in inverse.PARAM_NAMES],
+                           lr=t["lr"], betas=inverse.ADAM_BETAS,
+                           eps=inverse.ADAM_EPS)
+    pb = inverse._Problem(
+        camera=tpt.make_camera(**scenes.camera_args(ctx.config, res),
+                               device=cuda_device),
+        scene=scene, target=target, samples=spp, depth=depth,
+        seed=ctx.seed, backend="cluster",
+        accel=diff.make_accel(scene, "cluster"), loss="paired",
+        rel_eps=2e-2, masks=inverse._row_masks(scene, tuple(t["optimize"])),
+        rough_spsa=False)
+    before = _launches()
+    losses, first = [], None
+    for k in range(steps):
+        losses.append(inverse._train_step(pb, params, opt, k, t["lr"]))
+        if k == 0:
+            first = {n: opt.state[params[n]]["exp_avg"] / (1 - 0.9)
+                     for n in inverse.PARAM_NAMES}
+    assert _since(before) == (0, steps * 2 * depth, 0)
+    ref = MeshRecovery(arrays, cam_ref, target, samples=spp, depth=depth,
+                       seed=ctx.seed, lr=t["lr"], optimize=t["optimize"],
+                       device=cuda_device)
+    ref_losses, ref_first, ref_last, _ = ref.run(p0, steps)
+    counted = compare.counted_leaves(ref_first)
+    change = {n: params[n].detach() - p0[n] for n in inverse.PARAM_NAMES}
+    ref_change = {n: ref_last[n] - p0[n] for n in inverse.PARAM_NAMES}
+    gaps = {"loss_gap": max(compare.rel_gap(a, b)
+                            for a, b in zip(losses, ref_losses)),
+            "grad_gap": compare.leaf_gaps(first, ref_first, counted),
+            "update_gap": compare.leaf_gaps(change, ref_change, counted)}
+    assert "albedo" in counted
+    assert all(gaps[n] <= limits[n] for n in gaps), gaps
+
+
+@pytest.mark.cuda
 def test_cornell_recovery_under_its_bars(cuda_device):
     """tests/test_inverse.py's recovery on the card: 32^2, 250 steps, 64
     spp, depth 4, the target rendered by the trace kernel; visible diffuse
