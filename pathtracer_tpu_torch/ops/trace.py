@@ -6,10 +6,12 @@ miss kills the path; an EMIT hit adds its emission and kills the path; the
 next origin is ``hit_p + normal * SHIFT_BIAS``.  Dead rays are masked.
 
 Per-triangle shading constants live in one (T, 12) table, gathered by hit
-triangle id (``gather_features``): a plain ``index_select``, or, where a
-gradient flows into a table of up to ``ONEHOT_GATHER_MAX_ROWS`` rows, a
-one-hot matmul, whose backward is a matmul and not ``index_add_``'s
-float atomics.
+triangle id (``gather_features``): where a gradient flows into a table of up
+to ``ONEHOT_GATHER_MAX_ROWS`` rows, a one-hot matmul, whose backward is a
+matmul; else, on the card, the gather kernel pair
+(``ops/cuda/gather_kernel.gather_rows``), whose backward is an order-fixed
+segment sum; on the CPU its plain version, ``index_select``.  Neither
+backward takes ``index_add_``'s float atomics.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..camera import Camera, get_rays
 from ..linalg import SHIFT_BIAS, cross, dot
 from ..rng import rand01, sample_seed
 from ..scene import Scene
+from .cuda.gather_kernel import gather_rows, gather_rows_reference
 from .intersect import intersect_brute
 
 # Shade-table column layout.
@@ -68,11 +71,12 @@ def gather_features(table: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
     ``ONEHOT_GATHER_MAX_ROWS`` rows, the gather is ``one_hot(tid) @
     table``: the rows come out exact (products by 0 and 1, in float32), and
     the table's gradient is the matmul ``one_hot.T @ grad``, a sum in a
-    fixed order, where ``index_select``'s backward adds every ray into its
-    row with float atomics, in another order at every run on the card.
-    That needs float32 matmuls without TF32, which keeps ten bits of
-    mantissa: with ``torch.backends.cuda.matmul.allow_tf32`` set on a CUDA
-    table it raises."""
+    fixed order.  That needs float32 matmuls without TF32, which keeps ten
+    bits of mantissa: with ``torch.backends.cuda.matmul.allow_tf32`` set on
+    a CUDA table it raises.  Every other call on a CUDA table takes the
+    gather kernel pair (``gather_rows``: int32 ids, a contiguous table; a
+    copy forward, a sum in a fixed order backward), and on a CPU table its
+    plain version, ``gather_rows_reference``."""
     T = table.shape[0]
     if table.requires_grad and torch.is_grad_enabled() \
             and T <= ONEHOT_GATHER_MAX_ROWS:
@@ -82,9 +86,9 @@ def gather_features(table: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
                 "matmuls; torch.backends.cuda.matmul.allow_tf32 is set")
         ids = torch.arange(T, device=table.device, dtype=tid.dtype)
         return (tid[..., None] == ids).to(table.dtype) @ table
-    rows = table.index_select(0, tid.clamp_min(0).reshape(-1).to(torch.int64))
-    rows = rows.reshape(tuple(tid.shape) + (table.shape[1],))
-    return torch.where((tid >= 0)[..., None], rows, 0.0)
+    if table.is_cuda:
+        return gather_rows(table, tid)
+    return gather_rows_reference(table, tid)
 
 
 def park_pose(scene: Scene):
